@@ -1,0 +1,100 @@
+"""The paper's two matrix families, byte-identical to the reference's.
+
+Counterpart of `repro.core.generators` for `fd_matrix`, `rmat_edges`
+and `rmat_matrix`: the same numpy random streams in the same order, so
+the same seed gives the same arrays -- including the duplicate
+coordinates `fd_matrix` emits when the grid side degenerates to 1 or 2
+(ROADMAP C1).  Generation is host-side numpy; the CSR lands on `device`.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.device import resolve_device, stable_argsort
+
+from .formats import CSR
+
+# Graph500-style R-MAT quadrant probabilities.
+RMAT_A, RMAT_B, RMAT_C, RMAT_D = 0.57, 0.19, 0.19, 0.05
+
+
+def fd_matrix(n_rows: int, dtype=np.float32, seed: int = 0,
+              device=None) -> CSR:
+    """2-D 9-point-stencil FD matrix on a g x h periodic grid (g*h ==
+    n_rows, g the largest divisor <= sqrt(n_rows)): nine nonzeros per
+    row, the paper's three bands of three."""
+    g = int(np.sqrt(n_rows))
+    while n_rows % g != 0:
+        g -= 1
+    h = n_rows // g
+    rng = np.random.default_rng(seed)
+
+    node = np.arange(n_rows, dtype=np.int64)
+    gi, gj = node // h, node % h
+    rows, cols = [], []
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            rows.append(node)
+            cols.append(((gi + di) % g) * h + (gj + dj) % h)
+    rows = np.concatenate(rows)
+    cols = np.concatenate(cols)
+    vals = rng.uniform(0.5, 1.5, size=rows.shape[0]).astype(dtype)
+    return CSR.from_coo(rows, cols, vals, n_rows, n_rows, dtype=dtype,
+                        device=device)
+
+
+def rmat_edges(n_rows: int, n_edges: int, seed: int = 0,
+               a: float = RMAT_A, b: float = RMAT_B,
+               c: float = RMAT_C) -> tuple[np.ndarray, np.ndarray]:
+    """R-MAT edge list (int64 rows, cols), one quadrant draw per level."""
+    if n_rows <= 0 or n_rows & (n_rows - 1):
+        raise ValueError("R-MAT needs a power-of-two dimension")
+    levels = int(np.log2(n_rows))
+    rng = np.random.default_rng(seed)
+    rows = np.zeros(n_edges, dtype=np.int64)
+    cols = np.zeros(n_edges, dtype=np.int64)
+    ab, abc = a + b, a + b + c
+    for _ in range(levels):
+        r = rng.random(n_edges)
+        go_down = r >= ab                              # quadrants c, d
+        go_right = ((r >= a) & (r < ab)) | (r >= abc)  # quadrants b, d
+        rows <<= 1
+        rows |= go_down
+        cols <<= 1
+        cols |= go_right
+    return rows, cols
+
+
+def rmat_matrix(n_rows: int, nnz_per_row: int = 8, dtype=np.float32,
+                seed: int = 0, permute: bool = True, device=None) -> CSR:
+    """R-MAT matrix with ~nnz_per_row nonzeros per row; duplicate edges
+    summed in stream order; rows and columns randomly permuted."""
+    dev = resolve_device(device)
+    n_edges = n_rows * nnz_per_row
+    rows, cols = rmat_edges(n_rows, n_edges, seed=seed)
+    if permute:
+        rng = np.random.default_rng(seed + 1)
+        rperm = rng.permutation(n_rows)
+        cperm = rng.permutation(n_rows)
+        rows = rperm[rows]
+        cols = cperm[cols]
+    rng2 = np.random.default_rng(seed + 2)
+    vals = rng2.uniform(0.5, 1.5, size=n_edges).astype(dtype)
+    key = rows * n_rows + cols
+    order = stable_argsort(key, dev)
+    key, rows, cols, vals = key[order], rows[order], cols[order], vals[order]
+    uniq_mask = np.empty(len(key), dtype=bool)
+    uniq_mask[0] = True
+    np.not_equal(key[1:], key[:-1], out=uniq_mask[1:])
+    seg_id = np.cumsum(uniq_mask) - 1
+    # duplicates summed in stream order, as the reference's np.add.at over
+    # every edge sums them: the first edge of a key seeds its sum (0 + v
+    # is v), the few repeats are added after it in order
+    merged_vals = vals[uniq_mask].astype(dtype)
+    np.add.at(merged_vals, seg_id[~uniq_mask], vals[~uniq_mask])
+    return CSR.from_coo(rows[uniq_mask], cols[uniq_mask], merged_vals,
+                        n_rows, n_rows, dtype=dtype, device=dev)
+
+
+__all__ = ["fd_matrix", "rmat_edges", "rmat_matrix",
+           "RMAT_A", "RMAT_B", "RMAT_C", "RMAT_D"]

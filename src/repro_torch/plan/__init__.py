@@ -1,0 +1,15 @@
+"""repro_torch.plan -- compile-once SpMV plans on the card.
+
+    from repro_torch import plan
+    p = plan.compile(csr)            # analyze -> format -> layout (card)
+    y = p.execute(x)                 # one hand-written kernel per SpMV
+    Y = p.execute_many(X)            # batched plain-torch SpMM
+"""
+from .cache import DEFAULT_CACHE, PlanCache, get_plan
+from .compiler import SEMIRING_FORMATS, choose_format, compile, convert
+from .fingerprint import fingerprint_arrays, matrix_fingerprint
+from .plan import SpmvPlan
+
+__all__ = ["SpmvPlan", "compile", "choose_format",
+           "convert", "SEMIRING_FORMATS", "PlanCache", "DEFAULT_CACHE",
+           "get_plan", "matrix_fingerprint", "fingerprint_arrays"]

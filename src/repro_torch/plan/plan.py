@@ -1,0 +1,130 @@
+"""`SpmvPlan` -- the frozen decision chain for one matrix.
+
+Counterpart of `repro.plan.plan`.  A plan holds the structure report,
+the chosen format, the converted container and the prepared kernel
+layout, all on the plan's device.  `execute` is the hot path: it does
+no analysis, conversion or padding -- only the kernel wrapper of the
+plan's format, which launches the CUDA kernel on a CUDA plan and runs
+the plain version on a CPU plan.
+
+  * `execute(x)`       one multiply through the prepared layout
+                       (`use_pallas=False` plans run the container's
+                       plain PyTorch oracle instead; the option keeps the
+                       reference's name so cache keys agree);
+  * `execute_many(X)`  batched multi-vector SpMV (SpMM): the container's
+                       plain PyTorch oracle over a (k, n) batch, as the
+                       reference vmaps its plain jnp kernel -- no
+                       hand-written kernel on this path;
+  * `power_iteration`  repeated `execute` with normalisation.
+
+Reordered plans (ROADMAP A4), sharded plans (A10) and address traces
+(the telemetry slice) wait for their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core.formats import CSR, DIA, ELL, HYB
+from repro_torch.graph.semiring import resolve
+from repro_torch.kernels import _layout as kl
+from repro_torch.kernels.spmv_csr import spmv_csr_torch
+from repro_torch.kernels.spmv_csr_seg import spmv_hyb_torch
+from repro_torch.kernels.spmv_dia import spmv_dia_plain
+from repro_torch.kernels.spmv_ell import spmv_ell_torch
+
+_RUNNERS = {"dia": kl.spmv_dia_prepared, "ell": kl.spmv_ell_prepared,
+            "csr": kl.spmv_csr_prepared, "csr-seg": kl.spmv_csr_seg_prepared,
+            "hyb": kl.spmv_hyb_prepared}
+
+
+def container_spmv(container, x: torch.Tensor, sr) -> torch.Tensor:
+    """The plain PyTorch oracle of a container; `x` (n,) or (k, n)."""
+    if isinstance(container, DIA):
+        if sr.name != "plus_times":
+            raise ValueError("DIA is plus-times only")
+        return spmv_dia_plain(container.data, container.offsets, x,
+                              container.n_cols)
+    if isinstance(container, HYB):
+        return spmv_hyb_torch(container, x, sr)
+    if isinstance(container, ELL):
+        return spmv_ell_torch(container, x, sr)
+    if isinstance(container, CSR):
+        return spmv_csr_torch(container, x, sr)
+    raise TypeError(f"unsupported container {type(container).__name__}")
+
+
+@dataclasses.dataclass
+class SpmvPlan:
+    """Compiled, reusable execution plan for one matrix (obtain it from
+    `repro_torch.plan.compile` or a `PlanCache`)."""
+
+    fingerprint: str                 # digest of the ORIGINAL matrix
+    format_name: str                 # 'dia'|'ell'|'csr'|'csr-seg'|'hyb'
+    container: Any                   # converted format container
+    prep: Any                        # prepared kernel layout (or None)
+    device: torch.device
+    report: Any = None               # StructureReport (None if forced)
+    csr: Any = None                  # the CSR, when kept (SpMM source)
+    threads: int = 1
+    use_pallas: bool = True          # False: container oracle, no kernels
+    semiring: str = "plus_times"
+    chosen: str = "none"             # scored candidate ("none": unscored)
+    compile_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.container.n_rows)
+
+    @property
+    def n_cols(self) -> int:
+        return int(self.container.n_cols)
+
+    def _input(self, x) -> torch.Tensor:
+        """x on the plan's device as f32; a tensor on another device is
+        refused rather than silently moved."""
+        if isinstance(x, torch.Tensor) and x.device != self.device:
+            raise ValueError(f"x lies on {x.device}, the plan on "
+                             f"{self.device}")
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def execute(self, x) -> torch.Tensor:
+        """y = A (⊕,⊗) x through the frozen plan."""
+        x = self._input(x)
+        sr = resolve(self.semiring)
+        if not self.use_pallas:
+            if x.dim() != 1 or x.shape[0] != self.n_cols:
+                raise ValueError(f"x must have shape ({self.n_cols},)")
+            return container_spmv(self.container, x, sr)
+        return _RUNNERS[self.format_name](self.prep, x, semiring=sr)
+
+    __call__ = execute
+
+    def execute_many(self, X) -> torch.Tensor:
+        """Batched SpMV: Y[k] = A (⊕,⊗) X[k] for a (k, n_cols) batch."""
+        X = self._input(X)
+        if X.dim() != 2 or X.shape[1] != self.n_cols:
+            raise ValueError(f"execute_many expects (k, {self.n_cols}), "
+                             f"got {tuple(X.shape)}")
+        return container_spmv(self.container, X, resolve(self.semiring))
+
+    def power_iteration(self, x0, n_iters: int = 16):
+        """Dominant-eigenpair estimate by repeated `execute`.  Returns
+        (eigenvalue estimate, vector)."""
+        x = self._input(x0)
+        lam = torch.zeros((), dtype=x.dtype, device=x.device)
+        for _ in range(n_iters):
+            y = self.execute(x)
+            lam = torch.linalg.vector_norm(y)
+            x = y / torch.clamp(lam, min=1e-30)
+        return lam, x
+
+    def summary(self) -> str:
+        sr_s = "" if self.semiring == "plus_times" else f" sr={self.semiring}"
+        return (f"SpmvPlan[{self.fingerprint[:8]}] fmt={self.format_name}"
+                f"{sr_s} reorder=none threads={self.threads}")
+
+
+__all__ = ["SpmvPlan", "container_spmv"]

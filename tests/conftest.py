@@ -25,6 +25,7 @@ def pytest_addoption(parser):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line("markers", "gpu: needs a CUDA card")
     try:
         from hypothesis import HealthCheck, settings
     except ModuleNotFoundError:
