@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
-It builds the four hand-written CUDA kernels from `src/repro_torch/
+It builds the five hand-written CUDA kernels from `src/repro_torch/
 kernels/csrc/` and then runs these phases, one output line per step:
 
   device   the card's name and power limit (as nvidia-smi gives them)
@@ -18,11 +18,27 @@ kernels/csrc/` and then runs these phases, one output line per step:
            PageRank within rtol 1e-3 (values near 2^-22);
   dia      FD PageRank at 2^16, where the compiler picks DIA, counted the
            same way, against its plain path;
+  reorder  a banded matrix (bandwidth 8) at 2^22 under a seeded symmetric
+           permutation: `rcm` recovers the band, `auto_format(...,
+           reordering=r)` gives DIA, the per-call `spmv(..., reordering=
+           r)` (DIA kernel) equals `spmv(scrambled)` (padded CSR) within
+           rtol 1e-5 and `plan.compile(scrambled, reorder=r)` is DIA and
+           equals the per-call result bit for bit;
+  rmat_rcm R-MAT 2^22 PageRank with `reorder=r`, r = rcm of its operand
+           computed once, kernels against the plain path;
+  bell     a blocked graph at 2^21 (dense 8x128 tiles, 12 per 1024
+           rows): `auto_format` gives BELL and the per-call `spmv`
+           through the BELL kernel equals its plain path (bit for bit on
+           integer-valued x, rtol 1e-5 on real x); its PageRank compiles
+           to BELL, kernels against the plain path;
   kernel   each kernel against its plain version on the card, on the
            main path's layouts, under every semiring it serves:
            bit-identical on integer-valued plus-times operands, equal
            under min_plus / or_and / max_times (+-inf included), within
-           rtol 1e-5 / atol 1e-6 on real-valued plus-times;
+           rtol 1e-5 / atol 1e-6 on real-valued plus-times; BELL, whose
+           plain version repeats its summation order, bit-identical on
+           real values too, and NaN where its plain version is NaN when
+           the first x tile holds a non-finite value;
   time     per kernel at the main path's shapes: CUDA-event time of many
            launches, its plain version's time, a torch.sparse CSR
            product's time where one computes the same function, and the
@@ -32,14 +48,20 @@ kernels/csrc/` and then runs these phases, one output line per step:
            ELL its (W, n) slab, padded CSR its nonzeros and row
            pointers, segmented CSR its heavy nonzeros and the base.
            The uniform 8 nnz + 12 n bytes of the unpadded CSR is
-           printed beside it as `csr_bound_ms`.
+           printed beside it as `csr_bound_ms`.  DIA is timed on the
+           reordered 2^22 band (and on FD 2^16), BELL on the blocked
+           PageRank layout's real blocks, with the padded container's
+           bytes beside it as `padded_bound_ms`.
 
 Then one JSON line `{"kernels": [...]}` and, last,
 `{"ok": true, "device": {...}}`.  It exits nonzero and prints no result
 without a card, outside a checkout, or when any check fails.
 `--cpu-rehearsal` runs every phase at a small size on the CPU through
 the plain versions (no kernels, so no result either) to rehearse the
-control flow.
+control flow:
+
+    python3 chip_smoke.py --cpu-rehearsal --log2n 17 --dia-log2n 12 \
+        --reorder-log2n 14 --bell-log2n 13 --reps 3
 """
 from __future__ import annotations
 
@@ -66,7 +88,9 @@ TPU_KERNELS = {
     "spmv_ell": "src/repro/kernels/spmv_ell.py:46",
     "spmv_csr": "src/repro/kernels/spmv_csr.py:62",
     "spmv_csr_seg": "src/repro/kernels/spmv_csr_seg.py:67",
+    "spmv_bell": "src/repro/kernels/spmv_bell.py:50",
 }
+TILES_PER_1024 = 12                 # dense 8x128 tiles of the blocked graph
 ANALYTICS = ("pagerank", "bfs", "sssp", "connected_components")
 
 FAILURES: list = []
@@ -171,6 +195,215 @@ def compare_runs(tag, kern, plain):
 
 
 # ---------------------------------------------------------------------------
+# the reordering, per-call and BELL paths
+# ---------------------------------------------------------------------------
+
+FORMAT_KERNELS = {"csr": ["spmv_csr"], "ell": ["spmv_ell"],
+                  "dia": ["spmv_dia"], "bell": ["spmv_bell"],
+                  "hyb": ["spmv_ell", "spmv_csr_seg"],
+                  "csr-seg": ["spmv_csr_seg"]}
+
+
+def banded(n, bandwidth, dev, nnz_per_row=9, seed=0):
+    """The scheme and random stream of the reference's `banded_matrix`:
+    `nnz_per_row` offsets uniform in [-bandwidth, bandwidth] per row
+    (clipped to the matrix), duplicates summed in stream order."""
+    from repro_torch.core.formats import CSR
+    from repro_torch.device import stable_argsort
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), nnz_per_row)
+    offs = rng.integers(-bandwidth, bandwidth + 1, size=rows.shape[0])
+    cols = np.clip(rows + offs, 0, n - 1)
+    vals = rng.uniform(0.5, 1.5, size=rows.shape[0]).astype(np.float32)
+    key = rows * n + cols
+    order = stable_argsort(key, dev)
+    key, rows, cols, vals = key[order], rows[order], cols[order], vals[order]
+    uniq = np.ones(len(key), dtype=bool)
+    uniq[1:] = key[1:] != key[:-1]
+    seg = np.cumsum(uniq) - 1
+    merged = np.zeros(int(seg[-1]) + 1, dtype=np.float32)
+    np.add.at(merged, seg, vals)
+    return CSR.from_coo(rows[uniq], cols[uniq], merged, n, n, device=dev)
+
+
+def blocked_coo(n, n_blocks, seed=0):
+    """The scheme and random stream of the test helper `_blocked_matrix`
+    (`tests/test_auto_format.py`): `n_blocks` dense 8x128 tiles at
+    seeded block-aligned places, normal values; overlapping tiles make
+    duplicate coordinates."""
+    rng = np.random.default_rng(seed)
+    rr, cc = np.meshgrid(np.arange(8), np.arange(128), indexing="ij")
+    rows, cols = [], []
+    for _ in range(n_blocks):
+        r0 = int(rng.integers(0, n // 8)) * 8
+        c0 = int(rng.integers(0, n // 128)) * 128
+        rows.append((r0 + rr).ravel())
+        cols.append((c0 + cc).ravel())
+    rows = np.concatenate(rows)
+    cols = np.concatenate(cols)
+    vals = rng.normal(size=rows.shape[0]).astype(np.float32)
+    return rows, cols, vals
+
+
+def close(a, b) -> bool:
+    return bool(torch.allclose(a, b, rtol=REAL_RTOL, atol=REAL_ATOL))
+
+
+def run_reorder(log2n, dev, K, T, core, compile_plan, reps):
+    """Scrambled band -> RCM -> DIA, per-call and compiled, against the
+    padded-CSR multiply of the scrambled matrix."""
+    n = 1 << log2n
+    t0 = time.perf_counter()
+    band = banded(n, 8, dev)
+    perm = np.random.default_rng(0).permutation(n)
+    scrambled = T.Reordering(row_perm=perm, col_perm=perm).apply(band)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = T.rcm(scrambled)
+    reorder_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fmt = core.auto_format(scrambled, reordering=r)
+    auto_s = time.perf_counter() - t0
+    log(f"reorder 2^{log2n}: nnz={scrambled.nnz} gen_s={gen_s:.2f} "
+        f"reorder_s={reorder_s:.2f} auto_format_s={auto_s:.2f} "
+        f"stats={r.stats} fmt={type(fmt).__name__}")
+    if not check(type(fmt).__name__ == "DIA",
+                 f"reorder: auto_format gave {type(fmt).__name__}, not DIA"):
+        return None
+    log(f"reorder dia: {fmt.data.shape[0]} diagonals, "
+        f"{fmt.data.numel() * 4 / 2 ** 20:.1f} MiB band")
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand(n, generator=gen).to(dev)
+    K.reset_launch_counts()
+    y_dia = core.spmv(fmt, x, reordering=r, use_pallas=True)
+    y_csr = core.spmv(scrambled, x, use_pallas=True)
+    plan = compile_plan(scrambled, reorder=r, device=dev)
+    y_plan = plan.execute(x)
+    sync(dev)
+    counts = K.launch_counts()
+    check(plan.format_name == "dia" and plan.chosen == "rcm",
+          f"reorder: compile gave {plan.format_name}/{plan.chosen}")
+    check(torch.equal(y_plan, y_dia),
+          "reorder: the compiled plan differs from the per-call result")
+    check(close(y_dia, y_csr),
+          "reorder: DIA after RCM differs from the scrambled CSR")
+    y_plain = core.spmv(fmt, x, reordering=r, use_pallas=False)
+    check(close(y_dia, y_plain), "reorder: DIA differs from its plain path")
+    err = float((y_dia - y_csr).abs().max())
+    dia_ms = time_ms(lambda: core.spmv(fmt, x, reordering=r), reps, dev)
+    csr_ms = time_ms(lambda: core.spmv(scrambled, x), reps, dev)
+    log(f"reorder spmv: dia(rcm) vs csr(scrambled) max abs err {err:.3g}; "
+        f"apply_s={plan.compile_stats['reorder_s']:.2f} "
+        f"compile_s={compile_seconds(plan):.2f} "
+        f"spmv_dia_rcm_ms={dia_ms:.4f} spmv_csr_scrambled_ms={csr_ms:.4f} "
+        f"(per call: x gather, kernel, y scatter)")
+    log(f"reorder launches {json.dumps(counts)}")
+    for k in ("spmv_dia", "spmv_csr"):
+        check(dev.type != "cuda" or counts[k] > 0,
+              f"reorder path launched {k} no time")
+    return {"plan": plan, "counts": counts}
+
+
+def run_rmat_rcm(adj, main_res, dev, K, T, drivers, cache):
+    """R-MAT PageRank with the RCM of its operand, kernels vs plain."""
+    t0 = time.perf_counter()
+    operand = drivers.pagerank_operand(adj)[0]
+    r = T.rcm(operand)
+    rcm_s = time.perf_counter() - t0
+    log(f"rmat_rcm 2^{adj.n_rows.bit_length() - 1}: operand+rcm_s="
+        f"{rcm_s:.2f} stats={r.stats}")
+    r0 = np.random.default_rng(7).uniform(0.5, 1.5, adj.n_rows) \
+        .astype(np.float32)
+    kw = dict(tol=PR_TOL, r0=r0, reorder=r, plan_cache=cache, device=dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = drivers.pagerank(adj, **kw)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    ms = spmv_ms(res.plan, dev)
+    report_run("rmat_rcm", "rmat", "pagerank", res, wall, spmv=ms)
+    log(f"rmat_rcm spmv_ms={ms:.4f} (rcm, incl. x gather and y scatter) "
+        f"vs {spmv_ms(main_res.plan, dev):.4f} unreordered; iters "
+        f"{res.n_iters} vs {main_res.n_iters}")
+    log(f"rmat_rcm launches {json.dumps(counts)}")
+    for k in FORMAT_KERNELS[res.plan.format_name]:
+        check(dev.type != "cuda" or counts[k] >= res.n_iters,
+              f"rmat_rcm path launched {k} {counts[k]} times")
+    plain = drivers.pagerank(adj, use_pallas=False, **kw)
+    check(plain.n_iters == res.n_iters, f"rmat_rcm pagerank: iterations "
+          f"{res.n_iters} vs {plain.n_iters}")
+    compare_pagerank("rmat_rcm", res, plain)
+    return {"plan": res.plan, "counts": counts}
+
+
+def run_bell(log2n, dev, K, CSR, core, drivers, cache, reps):
+    """A blocked graph: per-call BELL SpMV and PageRank on BELL."""
+    n = 1 << log2n
+    t0 = time.perf_counter()
+    adj = CSR.from_coo(*blocked_coo(n, TILES_PER_1024 * n // 1024), n, n,
+                       device=dev)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bell = core.auto_format(adj)
+    auto_s = time.perf_counter() - t0
+    log(f"bell 2^{log2n}: nnz={adj.nnz} gen_s={gen_s:.2f} "
+        f"auto_format_s={auto_s:.2f} fmt={type(bell).__name__}")
+    if not check(type(bell).__name__ == "BELL",
+                 f"bell: auto_format gave {type(bell).__name__}, not BELL"):
+        return None
+    gen = torch.Generator().manual_seed(4)
+    x = torch.rand(n, generator=gen).to(dev)
+    xi = torch.randint(-8, 9, (n,), generator=gen).float().to(dev)
+    # the same blocks with integer values: every float32 sum is exact
+    bell_int = dataclasses.replace(
+        bell, data=int_values(bell.data, "plus_times", gen))
+    K.reset_launch_counts()
+    y, yi = core.spmv(bell, x), core.spmv(bell_int, xi)
+    t0 = time.perf_counter()
+    res = drivers.pagerank(adj, tol=PR_TOL, plan_cache=cache, device=dev)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    log(f"bell launches {json.dumps(counts)}")
+    check(dev.type != "cuda" or counts["spmv_bell"] >= 2 + res.n_iters,
+          f"bell path launched spmv_bell {counts['spmv_bell']} times")
+    check(res.plan.format_name == "bell",
+          f"bell pagerank compiled to {res.plan.format_name}")
+    prep = res.plan.prep
+    c = res.plan.container
+    log(f"bell pagerank layout: blocks_per_row={c.blocks_per_row} "
+        f"real_blocks={prep.blocks.shape[0]} "
+        f"real_GiB={prep.blocks.numel() * 4 / 2 ** 30:.3f} "
+        f"padded_GiB={c.storage_bytes() / 2 ** 30:.3f}")
+    report_run("bell", "blocked", "pagerank", res, wall,
+               spmv=spmv_ms(res.plan, dev))
+    check(torch.equal(yi, core.spmv(bell_int, xi, use_pallas=False)),
+          "bell: per-call spmv differs from its plain path on integers")
+    # normal values cancel, so a row's rounding scales with Σ|a||x|, not
+    # with its value: held to rtol 1e-5 of that sum
+    scale = core.spmv(dataclasses.replace(bell, data=bell.data.abs()),
+                      x.abs(), use_pallas=False)
+    err = (y - core.spmv(bell, x, use_pallas=False)).abs()
+    check(bool((err <= REAL_RTOL * scale + REAL_ATOL).all()),
+          "bell: per-call spmv differs from its plain path")
+    log(f"bell per-call vs plain: integer x bit-identical, real x max abs "
+        f"err {float(err.max()):.3g} (max err / row sum of |a||x| "
+        f"{float((err / scale.clamp(min=1e-30)).max()):.3g})")
+    call_ms = time_ms(lambda: core.spmv(bell, x), reps, dev)
+    log(f"bell per-call spmv_ms={call_ms:.4f} (blocks_per_row="
+        f"{bell.blocks_per_row}, padded {bell.storage_bytes() / 2 ** 30:.3f}"
+        f" GiB)")
+    plain = drivers.pagerank(adj, tol=PR_TOL, plan_cache=cache,
+                             use_pallas=False, device=dev)
+    check(plain.n_iters == res.n_iters, f"bell pagerank: iterations "
+          f"{res.n_iters} vs {plain.n_iters}")
+    compare_pagerank("bell", res, plain)
+    return {"plan": res.plan, "counts": counts, "bell": bell}
+
+
+# ---------------------------------------------------------------------------
 # kernel vs plain on the card
 # ---------------------------------------------------------------------------
 
@@ -196,9 +429,13 @@ def int_values(vals, sr_name, gen):
     real = (vals != 0.0) & torch.isfinite(vals)
     lo = 1 if sr_name in ("or_and", "max_times") else -8
     hi = 2 if sr_name == "or_and" else 9
-    ints = torch.randint(lo, hi, vals.shape, generator=gen).float()
+    # drawn where the values lie: BELL layouts hold 10^8-10^9 entries
+    here = torch.Generator(device=vals.device).manual_seed(
+        int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
+    ints = torch.randint(lo, hi, vals.shape, generator=here,
+                         device=vals.device).float()
     ints[ints == 0] = 1
-    return torch.where(real, ints.to(vals.device), vals)
+    return torch.where(real, ints, vals)
 
 
 def compare(errs, kname, label, got, want, exact):
@@ -228,16 +465,48 @@ def kernel_vs_plain(K, SR, plans, dev):
     errs: dict = {}
     fd_pr, dia_pr = plans[("fd", "pagerank")], plans[("dia", "pagerank")]
 
-    # DIA: plus-times only
-    p = dia_pr.prep
-    n = p.n_cols
-    for kind in ("int", "real"):
-        band = int_values(p.band, "plus_times", gen) if kind == "int" \
-            else p.band
-        x = x_for("plus_times", n, gen, dev, kind)
-        compare(errs, "spmv_dia", f"fd2^{n.bit_length() - 1} {kind}",
-                K.spmv_dia(band, p.offsets, x, n),
-                K.spmv_dia_plain(band, p.offsets, x, n), exact=True)
+    # DIA: plus-times only; FD 2^16 and the RCM'd band
+    dias = [(f"fd2^{dia_pr.n_cols.bit_length() - 1}", dia_pr.prep)]
+    if ("reorder", "dia") in plans:
+        dias.append(("rcm band", plans[("reorder", "dia")].prep))
+    for label, p in dias:
+        n = p.n_cols
+        for kind in ("int", "real"):
+            band = int_values(p.band, "plus_times", gen) if kind == "int" \
+                else p.band
+            x = x_for("plus_times", n, gen, dev, kind)
+            compare(errs, "spmv_dia", f"{label} 2^{n.bit_length() - 1} {kind}",
+                    K.spmv_dia(band, p.offsets, x, n),
+                    K.spmv_dia_plain(band, p.offsets, x, n), exact=True)
+
+    # BELL: plus-times only; its plain version repeats the kernel's order,
+    # so real values are held bit for bit too
+    for label, key in (("blocked pagerank", ("bell", "pagerank")),
+                       ("blocked adjacency per-call", ("bell", "percall"))):
+        if key not in plans:
+            continue
+        p = plans[key].prep
+        for kind in ("int", "real"):
+            blocks = int_values(p.blocks, "plus_times", gen) \
+                if kind == "int" else p.blocks
+            x = x_for("plus_times", p.n_cols, gen, dev, kind)
+            args = (blocks, p.block_cols, p.block_ptr, p.pad0, x, p.n_rows)
+            compare(errs, "spmv_bell", f"{label} {kind}",
+                    K.spmv_bell(*args), K.spmv_bell_plain(*args), exact=True)
+    if ("bell", "small") in plans:
+        p = plans[("bell", "small")].prep
+        x = torch.ones(p.n_cols, device=dev)
+        x[3] = float("inf")
+        args = (p.blocks, p.block_cols, p.block_ptr, p.pad0, x, p.n_rows)
+        got, want = K.spmv_bell(*args), K.spmv_bell_plain(*args)
+        same = torch.equal(torch.isnan(got), torch.isnan(want)) and \
+            bool(torch.isnan(want).any()) and \
+            torch.equal(got[~torch.isnan(want)], want[~torch.isnan(want)])
+        check(same, "kernel spmv_bell: the first tile's inf is not "
+              "handled as its plain version handles it")
+        log(f"kernel spmv_bell blocked 2^10 inf in the first tile: "
+            f"nan rows {int(torch.isnan(got).sum())} of {got.shape[0]}, "
+            f"same as plain: {same}")
 
     # padded CSR: the FD PageRank layout under every semiring
     p = fd_pr.prep
@@ -359,16 +628,43 @@ def timings(K, SR, plans, dev, reps):
             f"{layout_bytes(*tensors) / unpadded:.3f}")
 
     pt = SR["plus_times"]
-    plan = plans[("dia", "pagerank")]
-    p, c = plan.prep, plan.csr
-    x = torch.rand(p.n_cols, generator=gen).to(dev)
-    A = sparse_csr(*_coo(c), c.n_rows, c.n_cols)
-    D = p.band.shape[0]
-    entry("spmv_dia", lambda: K.spmv_dia(p.band, p.offsets, x, p.n_cols),
-          lambda: K.spmv_dia_plain(p.band, p.offsets, x, p.n_cols),
-          lambda: A @ x, layout_bytes(p.band, p.offsets) + 4 * p.n_cols
-          + 4 * p.n_rows, 2 * D * p.n_rows, c.nnz, c.n_rows,
-          (p.band, p.offsets), f"fd pagerank, plus_times, {D} diagonals")
+    # DIA: the RCM'd 2^22 band (the JSON entry) and FD 2^16 PageRank
+    for key, label in ((("reorder", "dia"), "rcm band"),
+                       (("dia", "pagerank"), "fd pagerank")):
+        if key not in plans:
+            continue
+        plan = plans[key]
+        p, c = plan.prep, plan.csr
+        x = torch.rand(p.n_cols, generator=gen).to(dev)
+        A = sparse_csr(*_coo(c), c.n_rows, c.n_cols)
+        D = p.band.shape[0]
+        entry("spmv_dia",
+              lambda: K.spmv_dia(p.band, p.offsets, x, p.n_cols),
+              lambda: K.spmv_dia_plain(p.band, p.offsets, x, p.n_cols),
+              lambda: A @ x, layout_bytes(p.band, p.offsets) + 4 * p.n_cols
+              + 4 * p.n_rows, 2 * D * p.n_rows, c.nnz, c.n_rows,
+              (p.band, p.offsets), f"{label}, plus_times, {D} diagonals",
+              "spmv_dia" if "spmv_dia" not in out else f"spmv_dia {label}")
+
+    # BELL: the real blocks (4 bm bn bytes and a block column each), x, y
+    if ("bell", "pagerank") in plans:
+        plan = plans[("bell", "pagerank")]
+        p, c, bell = plan.prep, plan.csr, plan.container
+        nb, bm = p.blocks.shape[0], p.blocks.shape[1]
+        x = torch.rand(p.n_cols, generator=gen).to(dev)
+        A = sparse_csr(*_coo(c), c.n_rows, c.n_cols)
+        io = 4 * p.n_cols + 4 * p.n_rows
+        args = (p.blocks, p.block_cols, p.block_ptr, p.pad0, x, p.n_rows)
+        entry("spmv_bell", lambda: K.spmv_bell(*args),
+              lambda: K.spmv_bell_plain(*args), lambda: A @ x,
+              (4 * bm * 128 + 4) * nb + io, 2 * bm * 128 * nb, c.nnz,
+              c.n_rows, (p.blocks, p.block_cols, p.block_ptr, p.pad0),
+              f"blocked pagerank, {nb} real blocks of {bm}x128")
+        padded = 1e3 * (bell.storage_bytes() + io) / HBM_BYTES_PER_S
+        out["spmv_bell"]["padded_bound_ms"] = padded
+        log(f"time spmv_bell padded_bound_ms={padded:.4f} (the padded "
+            f"({bell.data.shape[0]}, {bell.blocks_per_row}, {bm}, 128) "
+            f"container, {bell.storage_bytes()} bytes, and x, y)")
 
     # ELL reads every slot of its (W, n) slab; timed under plus-times
     # (the R-MAT PageRank light slab's semiring), where torch.sparse
@@ -432,6 +728,10 @@ def main(argv=None) -> int:
                     help="rows of the main path's matrices (2^k)")
     ap.add_argument("--dia-log2n", type=int, default=16,
                     help="rows of the DIA path's FD matrix (<= 16)")
+    ap.add_argument("--reorder-log2n", type=int, default=22,
+                    help="rows of the reorder phase's scrambled band")
+    ap.add_argument("--bell-log2n", type=int, default=21,
+                    help="rows of the bell phase's blocked graph")
     ap.add_argument("--reps", type=int, default=50,
                     help="kernel launches per timing")
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -447,7 +747,11 @@ def main(argv=None) -> int:
         dev = torch.device("cuda", torch.cuda.current_device())
     sys.path.insert(0, str(ROOT / "src"))
     try:
+        from repro_torch import core
         from repro_torch import kernels as K
+        from repro_torch import plan as P
+        from repro_torch import reorder as T
+        from repro_torch.core.formats import CSR
         from repro_torch.core.generators import fd_matrix, rmat_matrix
         from repro_torch.graph import drivers
         from repro_torch.graph.semiring import SEMIRINGS as SR
@@ -477,7 +781,7 @@ def main(argv=None) -> int:
         # steppers use), this keeps one-time loading out of the main
         # path's iterations
         tiny = rmat_matrix(256, device=dev)
-        for fmt in ("dia", "ell", "csr", "hyb"):
+        for fmt in ("dia", "bell", "ell", "csr", "hyb"):
             compile_plan(tiny, format=fmt, device=dev).execute(
                 torch.ones(256, device=dev))
     else:
@@ -520,15 +824,6 @@ def main(argv=None) -> int:
         for name in ANALYTICS:
             report_run("plain", fam, name, *plain[fam][name])
         compare_runs(f"main {fam}", kern[fam], plain[fam])
-    iters = {k: 0 for k in counts}
-    for fam in adjs:
-        for name in ANALYTICS:
-            res = kern[fam][name][0]
-            fmt = res.plan.format_name
-            for k in {"csr": ["spmv_csr"], "ell": ["spmv_ell"],
-                      "dia": ["spmv_dia"],
-                      "hyb": ["spmv_ell", "spmv_csr_seg"]}[fmt]:
-                iters[k] += res.n_iters
 
     # -- DIA path -------------------------------------------------------------
     nd = 1 << args.dia_log2n
@@ -556,17 +851,42 @@ def main(argv=None) -> int:
     log(f"dia pagerank kernels vs plain: iters {dres.n_iters} == "
         f"{dplain.n_iters}")
     compare_pagerank("dia", dres, dplain)
-    counts["spmv_dia"] = dia_counts["spmv_dia"]
-    iters["spmv_dia"] = dres.n_iters
+    phase_counts = {"main": counts, "dia": dia_counts}
+
+    # -- the reordering, per-call and BELL paths ------------------------------
+    plans = {}
+    rr = run_reorder(args.reorder_log2n, dev, K, T, core, compile_plan,
+                     args.reps)
+    if rr is not None:
+        plans[("reorder", "dia")] = rr["plan"]
+        phase_counts["reorder"] = rr["counts"]
+    rm = run_rmat_rcm(adjs["rmat"], kern["rmat"]["pagerank"][0], dev, K, T,
+                      drivers, cache)
+    phase_counts["rmat_rcm"] = rm["counts"]
+    rb = run_bell(args.bell_log2n, dev, K, CSR, core, drivers, cache,
+                  args.reps)
+    if rb is not None:
+        phase_counts["bell"] = rb["counts"]
+        plans[("bell", "pagerank")] = rb["plan"]
+        bell = rb["bell"]
+        plans[("bell", "percall")] = P.DEFAULT_CACHE.get_or_build(
+            P.matrix_fingerprint(bell) + "|container",
+            lambda: P.plan_for_container(bell))
+    small = CSR.from_coo(*blocked_coo(1024, TILES_PER_1024), 1024, 1024,
+                         device=dev)
+    plans[("bell", "small")] = compile_plan(small, format="bell", device=dev)
+    totals = {k: sum(c.get(k, 0) for c in phase_counts.values())
+              for k in K.KERNELS}
+    log(f"launches by path {json.dumps(phase_counts)}")
 
     # -- kernel vs plain -------------------------------------------------------
-    plans = {(fam, name): kern[fam][name][0].plan
-             for fam in adjs for name in ANALYTICS}
+    plans.update({(fam, name): kern[fam][name][0].plan
+                  for fam in adjs for name in ANALYTICS})
     plans[("dia", "pagerank")] = dres.plan
     want = {("fd", "pagerank"): "csr", ("dia", "pagerank"): "dia"}
     want.update({("fd", a): "ell" for a in ANALYTICS[1:]})
     want.update({("rmat", a): "hyb" for a in ANALYTICS})
-    got = {k: p.format_name for k, p in plans.items()}
+    got = {k: plans[k].format_name for k in want}
     if not check(got == want, f"formats {got} are not the main path's "
                  f"{want}; the kernel phases need those layouts"):
         return 1
@@ -585,12 +905,13 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": TPU_KERNELS[name], "launches": counts[name],
+            "replaces": TPU_KERNELS[name], "launches": totals[name],
             "max_abs_err": errs.get(name, 0.0), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-        log(f"kernels {name}: launches={counts[name]} over "
-            f"{iters[name]} iterations")
+        log(f"kernels {name}: launches={totals[name]} ("
+            + ", ".join(f"{path} {c.get(name, 0)}"
+                        for path, c in phase_counts.items()) + ")")
     if dev.type != "cuda":
         log(f"rehearsal done, {len(FAILURES)} failure(s); no result on CPU")
         return 3

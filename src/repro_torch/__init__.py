@@ -1,11 +1,15 @@
 """repro_torch -- the SpMV system on PyTorch and hand-written CUDA for an
 NVIDIA H100, beside the JAX reference package `repro`.
 
-    core      CSR/ELL/DIA/HYB containers, FD and R-MAT generators,
-              structure analysis (byte-identical to the reference's)
-    kernels   four CUDA kernels (DIA, ELL, padded CSR, segmented CSR),
-              each with a plain PyTorch version beside it
-    plan      compile-once plans: analyze -> format -> layout -> execute
+    core      CSR/ELL/BELL/DIA/HYB containers, FD and R-MAT generators,
+              structure analysis (byte-identical to the reference's),
+              and the per-call `auto_format` / `spmv`
+    reorder   RCM, degree sort, cache blocking and their chains
+    kernels   five CUDA kernels (DIA, ELL, padded CSR, segmented CSR,
+              BELL), each with a plain PyTorch version beside it, and
+              the per-call `ops` wrappers
+    plan      compile-once plans: analyze -> reorder -> format -> layout
+              -> execute
     graph     semirings and the PageRank / BFS / SSSP / connected
               components drivers
 

@@ -1,9 +1,13 @@
-"""Containers, generators and structure analysis of the port
-(counterparts of `repro.core`)."""
-from .formats import CSR, DIA, ELL, HYB, csr_from_numpy, hyb_auto_threshold
+"""Containers, generators, structure analysis and the per-call SpMV of
+the port (counterparts of `repro.core`)."""
+from .formats import (BELL, CSR, DIA, ELL, HYB, csr_from_numpy,
+                      hyb_auto_threshold)
 from .generators import fd_matrix, rmat_edges, rmat_matrix
-from .structure import StructureReport, analyze
+from .spmv import auto_format, spmv
+from .structure import (StructureDelta, StructureReport, analyze,
+                        analyze_reorder)
 
-__all__ = ["CSR", "ELL", "DIA", "HYB", "csr_from_numpy",
+__all__ = ["CSR", "ELL", "BELL", "DIA", "HYB", "csr_from_numpy",
            "hyb_auto_threshold", "fd_matrix", "rmat_edges", "rmat_matrix",
-           "StructureReport", "analyze"]
+           "StructureReport", "StructureDelta", "analyze",
+           "analyze_reorder", "auto_format", "spmv"]

@@ -1,11 +1,11 @@
-"""Sparse-matrix containers of the port: CSR, ELL, DIA and HYB.
+"""Sparse-matrix containers of the port: CSR, ELL, BELL, DIA and HYB.
 
 Counterpart of `repro.core.formats`.  Each container is a frozen
 dataclass whose array fields are torch tensors, declared in the
 reference's order and built host-side in numpy with the reference's
 dtypes (int32 indices; an int32 `indptr` unless nnz >= 2^31), so the
 bytes -- and hence the plan fingerprints -- match the reference's for
-the same matrix.  BELL waits for its slice (ROADMAP B5).
+the same matrix.
 
 Conversions (`from_csr`) put their result on the source matrix's device
 unless told otherwise.  ELL and HYB also record the `fill` their short
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import (resolve_device, stable_argsort, to_numpy,
-                                to_tensor)
+                                to_tensor, unique_inverse)
 
 
 def array_fields(container) -> Tuple[torch.Tensor, ...]:
@@ -84,6 +84,32 @@ class CSR:
 
     def row_lengths(self) -> np.ndarray:
         return np.diff(to_numpy(self.indptr))
+
+    def permute(self, row_perm=None, col_perm=None) -> "CSR":
+        """A' with A'[i, j] = A[row_perm[i], col_perm[j]] (`row_perm[i]`
+        names the OLD row at NEW position i; None is the identity).
+        Rebuilt through `from_coo`, so the result is canonically sorted
+        and duplicate coordinates survive, as in the reference; raises
+        ValueError on a non-permutation."""
+        def invert(perm, n, name):
+            perm = np.asarray(perm, dtype=np.int64)
+            if perm.shape != (n,) or \
+                    not np.array_equal(np.bincount(perm, minlength=n),
+                                       np.ones(n, dtype=np.int64)):
+                raise ValueError(f"{name} is not a permutation of range({n})")
+            inv = np.empty(n, dtype=np.int64)
+            inv[perm] = np.arange(n, dtype=np.int64)
+            return inv
+
+        cols = to_numpy(self.indices).astype(np.int64)
+        vals = to_numpy(self.data)
+        rows = _csr_rows(self)
+        if row_perm is not None:
+            rows = invert(row_perm, self.n_rows, "row_perm")[rows]
+        if col_perm is not None:
+            cols = invert(col_perm, self.n_cols, "col_perm")[cols]
+        return CSR.from_coo(rows, cols, vals, self.n_rows, self.n_cols,
+                            dtype=vals.dtype, device=self.device)
 
     @staticmethod
     def from_coo(rows, cols, vals, n_rows, n_cols, dtype=np.float32,
@@ -162,6 +188,74 @@ class ELL:
         return ELL(data=to_tensor(data, dev), indices=to_tensor(idx, dev),
                    n_rows=csr.n_rows, n_cols=csr.n_cols, max_nnz=width,
                    fill=float(fill))
+
+
+@dataclasses.dataclass(frozen=True)
+class BELL:
+    """Blocked ELL: dense (bm, bn) blocks, `blocks_per_row` per block row
+    of bm rows; padding blocks have block column 0 and all-zero data."""
+
+    data: torch.Tensor        # (n_block_rows, blocks_per_row, bm, bn)
+    block_cols: torch.Tensor  # (n_block_rows, blocks_per_row) int32
+    n_rows: int
+    n_cols: int
+    bm: int
+    bn: int
+    blocks_per_row: int
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_rows, self.n_cols)
+
+    @property
+    def n_block_rows(self) -> int:
+        return -(-self.n_rows // self.bm)
+
+    def storage_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in array_fields(self))
+
+    def density(self) -> float:
+        """Fraction of stored block entries that are true nonzeros."""
+        return float(torch.count_nonzero(self.data)) / self.data.numel()
+
+    @staticmethod
+    def from_csr(csr: CSR, bm: int = 8, bn: int = 128,
+                 blocks_per_row: int | None = None, device=None) -> "BELL":
+        """The reference's blocks, vectorised: blocks sorted by block
+        column within a block row, `blocks_per_row` (default: the widest
+        block row, at least 1) keeping the lowest block columns, padding
+        blocks at block column 0 with zero data.  Duplicate coordinates
+        are summed in CSR order (`np.add.at`), as the reference's
+        per-nonzero loop sums them.  Only the real blocks are built on
+        the host; the padded container is filled on `device`."""
+        nbr = -(-csr.n_rows // bm)
+        nbc = max(-(-csr.n_cols // bn), 1)
+        dev = csr.device if device is None else torch.device(device)
+        rows = _csr_rows(csr)
+        cols = to_numpy(csr.indices).astype(np.int64)
+        vals = to_numpy(csr.data)
+        keys, blk = unique_inverse((rows // bm) * nbc + cols // bn,
+                                   csr.device)
+        brow, bcol = keys // nbc, keys % nbc
+        counts = np.bincount(brow, minlength=nbr)
+        width = blocks_per_row or int(counts.max(initial=1))
+        width = max(width, 1)
+        first = np.zeros(nbr + 1, dtype=np.int64)
+        np.cumsum(counts, out=first[1:])
+        slot = np.arange(keys.size, dtype=np.int64) - first[brow]
+        keep = slot < width
+        blocks = np.zeros((keys.size, bm, bn), dtype=vals.dtype)
+        np.add.at(blocks.reshape(-1),
+                  (blk * bm + rows % bm) * bn + cols % bn, vals)
+        real = to_tensor(blocks[keep], dev)
+        data = torch.zeros((nbr, width, bm, bn), dtype=real.dtype,
+                           device=dev)
+        bcols = torch.zeros((nbr, width), dtype=torch.int32, device=dev)
+        at = (to_tensor(brow[keep], dev), to_tensor(slot[keep], dev))
+        data[at] = real
+        bcols[at] = to_tensor(bcol[keep].astype(np.int32), dev)
+        return BELL(data=data, block_cols=bcols, n_rows=csr.n_rows,
+                    n_cols=csr.n_cols, bm=bm, bn=bn, blocks_per_row=width)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,5 +354,5 @@ class HYB:
                    light_width=width, fill=float(fill))
 
 
-__all__ = ["CSR", "ELL", "DIA", "HYB", "csr_from_numpy",
+__all__ = ["CSR", "ELL", "BELL", "DIA", "HYB", "csr_from_numpy",
            "hyb_auto_threshold", "array_fields", "coo_order"]

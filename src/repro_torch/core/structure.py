@@ -2,8 +2,8 @@
 
 Counterpart of `repro.core.structure.analyze`: the same numpy arithmetic
 on the same sampled column stream, so the report -- and therefore the
-format the compiler picks -- is identical to the reference's.  Before/
-after reorder reports wait for the reordering slice (ROADMAP A4).
+format the compiler picks -- is identical to the reference's, before
+and after a reordering (`analyze_reorder`).
 """
 from __future__ import annotations
 
@@ -49,10 +49,14 @@ RECENT_WINDOW = 64      # lines considered "recent" for temporal locality
 STREAM_WINDOW = 24      # accesses a 16-stream prefetcher can look back over
 
 
-def analyze(csr: CSR, sample_rows: int | None = 65536) -> StructureReport:
-    """Structure metrics of `csr`, from at most `sample_rows` rows taken
-    as eight contiguous windows (the stream metrics need true
-    sequences)."""
+def analyze(csr: CSR, sample_rows: int | None = 65536,
+            reordering=None) -> StructureReport:
+    """Structure metrics of `csr` (after applying `reordering`, a
+    `repro_torch.reorder.Reordering`, when given), from at most
+    `sample_rows` rows taken as eight contiguous windows (the stream
+    metrics need true sequences)."""
+    if reordering is not None:
+        csr = reordering.apply(csr)
     indptr = to_numpy(csr.indptr)
     lengths = np.diff(indptr)
     n_rows = csr.n_rows
@@ -120,6 +124,50 @@ def analyze(csr: CSR, sample_rows: int | None = 65536) -> StructureReport:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class StructureDelta:
+    """Before/after structure comparison for one reordering."""
+
+    strategy: str
+    before: StructureReport
+    after: StructureReport
+
+    # the metrics a reordering is supposed to move, with the sign of "better"
+    COMPARED = (("bandwidth", -1), ("bandwidth_p95", -1),
+                ("n_distinct_offsets", -1), ("spatial_locality", +1),
+                ("temporal_locality", +1), ("stream_servable", +1))
+
+    def changes(self) -> dict:
+        """metric -> (before, after) for every compared metric."""
+        return {name: (getattr(self.before, name), getattr(self.after, name))
+                for name, _ in self.COMPARED}
+
+    def improved(self) -> bool:
+        """Did any compared metric move in the better direction?"""
+        return any(sign * (getattr(self.after, name) -
+                           getattr(self.before, name)) > 0
+                   for name, sign in self.COMPARED)
+
+    def summary(self) -> str:
+        parts = []
+        for name, _ in self.COMPARED:
+            b, a = getattr(self.before, name), getattr(self.after, name)
+            fmt = "{:.0f}" if isinstance(b, (int, np.integer)) else "{:.3f}"
+            parts.append(f"{name} {fmt.format(b)}->{fmt.format(a)}")
+        return (f"{self.strategy}: kind {self.before.kind}->{self.after.kind} "
+                + " ".join(parts))
+
+
+def analyze_reorder(csr: CSR, reordering,
+                    sample_rows: int | None = 65536) -> StructureDelta:
+    """Before/after structure report pair for one reordering."""
+    return StructureDelta(
+        strategy=getattr(reordering, "strategy", "?"),
+        before=analyze(csr, sample_rows=sample_rows),
+        after=analyze(csr, sample_rows=sample_rows, reordering=reordering),
+    )
+
+
 def _stream_servable(lines: np.ndarray, window: int) -> float:
     """Fraction of accesses whose line is within +-1 of one of the
     previous `window` accesses' lines."""
@@ -147,4 +195,5 @@ def _windowed_reuse(lines: np.ndarray, window: int) -> float:
     return float(np.mean((idx - prev_pos) <= window))
 
 
-__all__ = ["StructureReport", "analyze", "LINE_ELEMS"]
+__all__ = ["StructureReport", "StructureDelta", "analyze",
+           "analyze_reorder", "LINE_ELEMS"]

@@ -54,6 +54,14 @@ def stable_argsort(keys: np.ndarray, device=None) -> np.ndarray:
     return torch.sort(t, stable=True).indices.cpu().numpy()
 
 
+def unique(keys: np.ndarray, device=None) -> np.ndarray:
+    """`np.unique(keys)` (1-D, sorted), computed on `device`."""
+    if device is None or torch.device(device).type == "cpu":
+        return np.unique(keys)
+    t = torch.from_numpy(np.ascontiguousarray(keys)).to(device)
+    return torch.unique(t, sorted=True).cpu().numpy()
+
+
 def unique_inverse(keys: np.ndarray, device=None):
     """`np.unique(keys, return_inverse=True)` (1-D), computed on
     `device`."""

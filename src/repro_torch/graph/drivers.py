@@ -17,9 +17,11 @@ the progress value that decides convergence.
 
 Graph convention: A[i, j] != 0 is an edge i -> j; SpMV pulls along rows,
 so push-style traversals run on the transpose.  `device=None` means the
-card; pass device="cpu" for the plain versions on the CPU.  Reordering
-(ROADMAP A4), warm starts across graph deltas (A6) and serving (A8) wait
-for their slices.
+card; pass device="cpu" for the plain versions on the CPU.  Every driver
+takes `reorder=` (a strategy name, callable or `Reordering`) and passes
+it to the plan, whose iterations then run on the permuted operand while
+the values stay in the original vertex order.  Warm starts across graph
+deltas (A6) and serving (A8) wait for their slices.
 """
 from __future__ import annotations
 
@@ -109,9 +111,6 @@ def _graph_plan(matrix: CSR, semiring, *, reorder, plan_cache, format,
                 use_pallas, device):
     from repro_torch import plan as _plan
 
-    if reorder not in ("none", None):
-        raise NotImplementedError(
-            f"reorder={reorder!r} is not ported yet (ROADMAP A4)")
     cache = plan_cache if plan_cache is not None else _plan.DEFAULT_CACHE
     return cache.get_or_compile(matrix, **plan_options(
         semiring, reorder=reorder, format=format, use_pallas=use_pallas,

@@ -1,6 +1,7 @@
-"""The port's SpMV kernels: hand-written CUDA for Hopper (`csrc/`), each
+"""The port's five SpMV kernels: hand-written CUDA for Hopper (`csrc/`), each
 with a ctypes wrapper that counts its launches, a plain PyTorch version
 beside it, and the plan-time layouts in `_layout`."""
+from .spmv_bell import spmv_bell, spmv_bell_plain, spmv_bell_torch
 from .spmv_csr import spmv_csr, spmv_csr_plain, spmv_csr_torch
 from .spmv_csr_seg import spmv_csr_seg, spmv_csr_seg_plain, spmv_hyb_torch
 from .spmv_dia import spmv_dia, spmv_dia_plain
@@ -8,7 +9,8 @@ from .spmv_ell import spmv_ell, spmv_ell_plain, spmv_ell_torch
 
 #: kernel name -> wrapper (each wrapper carries its `launches` count)
 KERNELS = {"spmv_dia": spmv_dia, "spmv_ell": spmv_ell,
-           "spmv_csr": spmv_csr, "spmv_csr_seg": spmv_csr_seg}
+           "spmv_csr": spmv_csr, "spmv_csr_seg": spmv_csr_seg,
+           "spmv_bell": spmv_bell}
 
 
 def reset_launch_counts() -> None:
@@ -23,4 +25,5 @@ def launch_counts() -> dict:
 __all__ = ["KERNELS", "reset_launch_counts", "launch_counts",
            "spmv_dia", "spmv_dia_plain", "spmv_ell", "spmv_ell_plain",
            "spmv_ell_torch", "spmv_csr", "spmv_csr_plain", "spmv_csr_torch",
-           "spmv_csr_seg", "spmv_csr_seg_plain", "spmv_hyb_torch"]
+           "spmv_csr_seg", "spmv_csr_seg_plain", "spmv_hyb_torch",
+           "spmv_bell", "spmv_bell_plain", "spmv_bell_torch"]

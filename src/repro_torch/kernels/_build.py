@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("spmv_dia", "spmv_ell", "spmv_csr", "spmv_csr_seg")
+SOURCES = ("spmv_dia", "spmv_ell", "spmv_csr", "spmv_csr_seg", "spmv_bell")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

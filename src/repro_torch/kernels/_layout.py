@@ -24,11 +24,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.formats import CSR, DIA, ELL, HYB
+from repro_torch.core.formats import BELL, CSR, DIA, ELL, HYB
 from repro_torch.device import (stable_argsort, to_numpy, to_tensor,
                                 unique_inverse)
 from repro_torch.graph.semiring import Semiring, resolve
 
+from .spmv_bell import BN as BELL_BN, spmv_bell
 from .spmv_csr import spmv_csr
 from .spmv_csr_seg import LONG_ROW, spmv_csr_seg
 from .spmv_dia import spmv_dia
@@ -81,6 +82,53 @@ def spmv_dia_prepared(prep: PreparedDIA, x: torch.Tensor,
         raise ValueError("DIA plans are plus-times only")
     _check_x(x, prep.n_cols)
     return spmv_dia(prep.band, prep.offsets, x, prep.n_cols)
+
+
+# ---------------------------------------------------------------------------
+# BELL
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PreparedBELL:
+    """The container's blocks minus those that are all zero at block
+    column 0 -- the padding blocks, and any real block equal to one,
+    which add the same 0 * x[0:bn] -- in container order; `pad0[b]` marks
+    the block rows that had one, whose y adds that term (+0, or NaN when
+    the first x tile holds a non-finite value)."""
+    blocks: torch.Tensor      # (nb, bm, bn) f32
+    block_cols: torch.Tensor  # (nb,) int32
+    block_ptr: torch.Tensor   # (n_block_rows + 1,) int32
+    pad0: torch.Tensor        # (n_block_rows,) uint8
+    n_rows: int
+    n_cols: int
+
+
+def prepare_bell(bell: BELL) -> PreparedBELL:
+    if bell.bn != BELL_BN:
+        raise ValueError(f"prepare_bell: blocks must be {BELL_BN} wide, "
+                         f"got bn={bell.bn}")
+    dropped = (bell.block_cols == 0) & \
+        ~(bell.data != 0).flatten(2).any(dim=2)       # (nbr, bpr)
+    keep = ~dropped
+    ptr = torch.zeros(bell.data.shape[0] + 1, dtype=torch.int64,
+                      device=bell.data.device)
+    torch.cumsum(keep.sum(dim=1), 0, out=ptr[1:])
+    if int(ptr[-1]) >= np.iinfo(np.int32).max:
+        raise ValueError("prepare_bell: too many blocks for int32 offsets")
+    return PreparedBELL(blocks=bell.data[keep].contiguous(),
+                        block_cols=bell.block_cols[keep].contiguous(),
+                        block_ptr=ptr.to(torch.int32),
+                        pad0=dropped.any(dim=1).to(torch.uint8),
+                        n_rows=bell.n_rows, n_cols=bell.n_cols)
+
+
+def spmv_bell_prepared(prep: PreparedBELL, x: torch.Tensor,
+                       semiring=None) -> torch.Tensor:
+    if resolve(semiring).name != "plus_times":
+        raise ValueError("BELL plans are plus-times only")
+    _check_x(x, prep.n_cols)
+    return spmv_bell(prep.blocks, prep.block_cols, prep.block_ptr,
+                     prep.pad0, x, prep.n_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +335,7 @@ def spmv_hyb_prepared(prep: PreparedHYB, x: torch.Tensor,
 __all__ = [
     "ceil_div",
     "PreparedDIA", "prepare_dia", "spmv_dia_prepared",
+    "PreparedBELL", "prepare_bell", "spmv_bell_prepared",
     "PreparedELL", "prepare_ell", "spmv_ell_prepared",
     "PaddedCSR", "prepare_csr", "spmv_csr_prepared",
     "PreparedSegCSR", "segment_stream", "prepare_csr_seg",

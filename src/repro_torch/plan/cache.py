@@ -3,10 +3,15 @@
 Counterpart of `repro.plan.cache`: keys are the matrix fingerprint
 salted with the compile options, in the reference's format, so for the
 option dict the graph drivers use (`graph.drivers.plan_options`) the
-two packages produce the same key string.  A `device` option, when
-given, is part of the key like any other.  The overlay, swap and
-delta-recompile counters wait for the streaming slice (ROADMAP A6), the
-reordering / mesh / partition tokens for theirs.
+two packages produce the same key string, and so they do for a
+`reorder=` given as a strategy name or as a concrete `Reordering`
+(rendered `Reordering:{strategy}:{digest of row_perm, col_perm}`).  A
+callable option's token carries its module path, so a strategy callable
+of the port (`repro_torch.reorder...`) cannot key as the reference's
+(`repro.reorder...`) does.  A `device` option, when given, is part of
+the key like any other.  The overlay, swap and delta-recompile counters
+wait for the streaming slice (ROADMAP A6), the mesh / partition tokens
+for theirs.
 """
 from __future__ import annotations
 
@@ -43,6 +48,11 @@ def _fn_token(v) -> str:
 
 def _opt_token(v) -> str:
     """Stable string for one compile option."""
+    from repro_torch.reorder import Reordering
+
+    if isinstance(v, Reordering):
+        return f"Reordering:{v.strategy}:" + fingerprint_arrays(
+            np.asarray(v.row_perm), np.asarray(v.col_perm))
     if callable(v):
         return _fn_token(v)
     if isinstance(v, np.ndarray):

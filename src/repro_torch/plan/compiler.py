@@ -2,16 +2,18 @@
 
 Counterpart of `repro.plan.compiler` for the unscored path:
 
-    fingerprint -> structure.analyze -> choose_format -> convert
-                -> prepared kernel layout -> SpmvPlan (on `device`)
+    fingerprint -> reordering -> structure.analyze (of the permuted
+    matrix) -> choose_format -> convert -> prepared kernel layout
+    -> SpmvPlan (on `device`)
 
-`choose_format` is the reference's rule, so for the same matrix the two
-packages pick the same format.  This slice compiles with
-`predictor="none"` and `reorder="none"` (`reorder="auto"` degenerates to
-"none" without a predictor, as in the reference); candidate scoring
-(ROADMAP A9), reordering (A4), sharded plans (A10) and BELL (B5) raise
-`NotImplementedError` until their slices land.  `compile_stats` carries
-the reference's keys.
+`choose_format` is the reference's rule and `_candidates` its reading
+of `reorder=`, so for the same matrix and options the two packages pick
+the same format and the same reordering.  The port compiles with
+`predictor="none"` and `reorder="none"` by default (the reference's
+defaults are "auto"/"auto"): `reorder="auto"` with `predictor="none"`
+degenerates to "none", as in the reference; scoring more than one
+candidate (ROADMAP A9) and sharded plans (A10) raise
+`NotImplementedError`.  `compile_stats` carries the reference's keys.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import time
 from typing import Dict, Optional
 
 from repro_torch.core import structure
-from repro_torch.core.formats import CSR, DIA, ELL, HYB
+from repro_torch.core.formats import BELL, CSR, DIA, ELL, HYB
 from repro_torch.device import resolve_device
 from repro_torch.graph.semiring import SEMIRINGS, resolve
 from repro_torch.kernels import _layout as kl
@@ -33,9 +35,9 @@ from .plan import SpmvPlan
 HYB_MIN_CV = 1.0
 SEG_MIN_CV = 0.5
 
-# Semiring plans need absorbing padding, which DIA (and BELL) cannot hold.
+# Semiring plans need absorbing padding, which DIA and BELL cannot hold.
 SEMIRING_FORMATS = ("csr", "csr-seg", "ell", "hyb")
-FORMATS = ("dia", "ell", "csr", "csr-seg", "hyb")
+FORMATS = ("dia", "bell", "ell", "csr", "csr-seg", "hyb")
 
 
 def choose_format(report, threads: int = 1,
@@ -68,10 +70,10 @@ def convert(csr: CSR, format_name: str, fill: float = 0.0, device=None):
         return ELL.from_csr(csr, fill=fill, device=device)
     if format_name == "hyb":
         return HYB.from_csr(csr, fill=fill, device=device)
+    if format_name == "bell":
+        return BELL.from_csr(csr, device=device)
     if format_name in ("csr", "csr-seg"):
         return csr if device is None else csr.to(device)
-    if format_name == "bell":
-        raise _not_in_slice("the BELL format", "B5")
     raise ValueError(f"unknown format {format_name!r}")
 
 
@@ -79,6 +81,8 @@ def _prepare(container, format_name: str, *, bm: int, n_stripes: int,
              seg_len: int, semiring):
     if format_name == "dia":
         return kl.prepare_dia(container)
+    if format_name == "bell":
+        return kl.prepare_bell(container)
     if format_name == "ell":
         return kl.prepare_ell(container, semiring)
     if format_name == "csr":
@@ -89,6 +93,26 @@ def _prepare(container, format_name: str, *, bm: int, n_stripes: int,
     if format_name == "hyb":
         return kl.prepare_hyb(container, seg_len=seg_len, semiring=semiring)
     raise ValueError(f"unknown format {format_name!r}")
+
+
+def _candidates(csr: CSR, reorder) -> Dict[str, object]:
+    """label -> Reordering|None for the `reorder=` forms: 'none'/None, a
+    strategy name, a strategy callable, or a concrete Reordering (one
+    candidate each; 'auto', which adds RCM beside 'none' for a scorer to
+    choose between, is resolved by `compile` before this)."""
+    from repro_torch.reorder import STRATEGIES, Reordering
+
+    if reorder is None or reorder == "none":
+        return {"none": None}
+    if isinstance(reorder, str):
+        return {reorder: STRATEGIES[reorder](csr)}
+    if isinstance(reorder, Reordering):
+        return {reorder.strategy: reorder}
+    if callable(reorder):
+        r = reorder(csr)
+        return {getattr(r, "strategy",
+                        getattr(reorder, "__name__", "custom")): r}
+    raise TypeError(f"unsupported reorder argument: {reorder!r}")
 
 
 def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
@@ -107,8 +131,14 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
     """Compile a CSR matrix into a frozen `SpmvPlan` on `device` (None:
     the card; pass device="cpu" for the plain versions on the CPU).
 
-    format      force 'dia'|'ell'|'csr'|'csr-seg'|'hyb'; default reads it
-                off the structure report (`choose_format`)
+    reorder     'none'/None | a strategy name (`reorder.STRATEGIES`) | a
+                strategy callable | a concrete `Reordering`; the plan
+                multiplies the permuted matrix and gathers x / scatters y
+                so callers stay in the original order.  'auto' needs a
+                predictor (ROADMAP A9) and with predictor="none" is 'none'
+    format      force 'dia'|'bell'|'ell'|'csr'|'csr-seg'|'hyb'; default
+                reads it off the permuted matrix's structure report
+                (`choose_format`)
     use_pallas  True runs the prepared layout through the kernels; False
                 keeps no layout and runs the container's plain oracle
                 (the reference's name, kept so cache keys agree)
@@ -116,22 +146,22 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
                 plans use the absorbing-pad formats only
     bm / n_stripes / seg_len   padded-CSR row block and column stripes,
                 nonzeros per segment of the 'csr-seg'/'hyb' layouts
-    keep_csr    keep the CSR on the plan
+    keep_csr    keep the permuted CSR on the plan
     """
     if mesh is not None or partition is not None:
         raise _not_in_slice("sharded plans (mesh=, partition=)", "A10")
     if predictor != "none":
         raise _not_in_slice(f"predictor={predictor!r}", "A9")
-    if reorder not in ("none", None, "auto"):
-        raise _not_in_slice(f"reorder={reorder!r}", "A4")
+    if reorder == "auto":
+        # no scoring requested, so no candidate could be chosen by a
+        # score: 'auto' degenerates to the identity order
+        reorder = "none"
     dev = resolve_device(device)
     sr = resolve(semiring)
     if SEMIRINGS.get(sr.name) is not sr:
         raise ValueError(f"semiring {sr.name!r} is not registered in "
                          "repro_torch.graph.semiring.SEMIRINGS")
     if format is not None and format not in FORMATS:
-        if format == "bell":
-            raise _not_in_slice("the BELL format", "B5")
         raise ValueError(f"unknown format {format!r}")
     semiring_safe = sr.name != "plus_times"
     if semiring_safe and format is not None and \
@@ -142,11 +172,23 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
             "absorbing under plus_times)")
 
     fp = matrix_fingerprint(matrix)
-    stats: Dict[str, object] = {"reorder_s": 0.0}
+    stats: Dict[str, object] = {}
+    t0 = time.perf_counter()
+    cands = _candidates(matrix, reorder)
+    (chosen, reordering), = cands.items()
+    permuted = matrix
+    if reordering is not None:
+        permuted = reordering.apply(matrix)
+        # the gather / scatter indices go to the card now, not in the
+        # first execute
+        reordering.index("col_perm", dev)
+        reordering.index("inv_row_perm", dev)
+    stats["reorder_s"] = time.perf_counter() - t0
+
     report = None
     if format is None:
         t0 = time.perf_counter()
-        report = structure.analyze(matrix, sample_rows=sample_rows)
+        report = structure.analyze(permuted, sample_rows=sample_rows)
         format_name = choose_format(report, threads=threads,
                                     semiring_safe=semiring_safe)
         stats["analyze_s"] = time.perf_counter() - t0
@@ -156,7 +198,8 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
     stats["predict_s"] = 0.0
 
     t0 = time.perf_counter()
-    container = convert(matrix, format_name, fill=sr.pad_value, device=dev)
+    container = convert(permuted, format_name, fill=sr.pad_value,
+                        device=dev)
     stats["convert_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -166,11 +209,27 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
 
     return SpmvPlan(
         fingerprint=fp, format_name=format_name, container=container,
-        prep=prep, device=dev, report=report,
-        csr=matrix.to(dev) if keep_csr else None, threads=threads,
-        use_pallas=use_pallas, semiring=sr.name, chosen="none",
+        prep=prep, device=dev, reordering=reordering, report=report,
+        csr=permuted.to(dev) if keep_csr else None, threads=threads,
+        use_pallas=use_pallas, semiring=sr.name, chosen=chosen,
         compile_stats=stats)
 
 
-__all__ = ["compile", "choose_format", "convert", "HYB_MIN_CV",
-           "SEG_MIN_CV", "SEMIRING_FORMATS"]
+def plan_for_container(matrix) -> SpmvPlan:
+    """Minimal plan for an already-converted container (no analysis, no
+    reordering: the caller chose the format), on the container's device:
+    only the one-time kernel layout.  `core.spmv.spmv` caches these."""
+    names = {DIA: "dia", BELL: "bell", ELL: "ell", CSR: "csr", HYB: "hyb"}
+    format_name = names[type(matrix)]
+    dev = matrix.data.device
+    prep = _prepare(matrix, format_name, bm=128, n_stripes=1, seg_len=512,
+                    semiring=resolve(None))
+    return SpmvPlan(
+        fingerprint=matrix_fingerprint(matrix), format_name=format_name,
+        container=matrix, prep=prep, device=dev,
+        csr=matrix if isinstance(matrix, CSR) else None,
+        chosen="container")
+
+
+__all__ = ["compile", "choose_format", "convert", "plan_for_container",
+           "HYB_MIN_CV", "SEG_MIN_CV", "SEMIRING_FORMATS", "FORMATS"]

@@ -35,9 +35,9 @@ def fingerprint_arrays(*arrays, extra: str = "") -> str:
 
 
 def matrix_fingerprint(matrix) -> str:
-    """Digest of a container (CSR/ELL/DIA/HYB); the type name takes part,
-    so a CSR and the DIA converted from it differ.  O(1) after the first
-    call on an object."""
+    """Digest of a container (CSR/ELL/BELL/DIA/HYB); the type name takes
+    part, so a CSR and the DIA converted from it differ.  O(1) after the
+    first call on an object."""
     key = id(matrix)
     entry = _FP_MEMO.get(key)
     if entry is not None and entry[0]() is matrix:

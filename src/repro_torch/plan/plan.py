@@ -1,24 +1,27 @@
 """`SpmvPlan` -- the frozen decision chain for one matrix.
 
 Counterpart of `repro.plan.plan`.  A plan holds the structure report,
-the chosen format, the converted container and the prepared kernel
-layout, all on the plan's device.  `execute` is the hot path: it does
-no analysis, conversion or padding -- only the kernel wrapper of the
-plan's format, which launches the CUDA kernel on a CUDA plan and runs
-the plain version on a CPU plan.
+the reordering, the chosen format, the converted container and the
+prepared kernel layout, all on the plan's device.  `execute` is the hot
+path: it does no analysis, conversion or padding -- only the x gather
+and y scatter of a reordered plan (`index_select` over index tensors
+uploaded once) around the kernel wrapper of the plan's format, which
+launches the CUDA kernel on a CUDA plan and runs the plain version on a
+CPU plan.
 
-  * `execute(x)`       one multiply through the prepared layout
-                       (`use_pallas=False` plans run the container's
-                       plain PyTorch oracle instead; the option keeps the
-                       reference's name so cache keys agree);
+  * `execute(x)`       one multiply through the prepared layout, in the
+                       original row/column order (`use_pallas=False`
+                       plans run the container's plain PyTorch oracle
+                       instead; the option keeps the reference's name so
+                       cache keys agree);
   * `execute_many(X)`  batched multi-vector SpMV (SpMM): the container's
                        plain PyTorch oracle over a (k, n) batch, as the
                        reference vmaps its plain jnp kernel -- no
                        hand-written kernel on this path;
   * `power_iteration`  repeated `execute` with normalisation.
 
-Reordered plans (ROADMAP A4), sharded plans (A10) and address traces
-(the telemetry slice) wait for their slices.
+Sharded plans (ROADMAP A10) and address traces (the telemetry slice)
+wait for their slices.
 """
 from __future__ import annotations
 
@@ -27,15 +30,17 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.core.formats import CSR, DIA, ELL, HYB
+from repro_torch.core.formats import BELL, CSR, DIA, ELL, HYB
 from repro_torch.graph.semiring import resolve
 from repro_torch.kernels import _layout as kl
+from repro_torch.kernels.spmv_bell import spmv_bell_torch
 from repro_torch.kernels.spmv_csr import spmv_csr_torch
 from repro_torch.kernels.spmv_csr_seg import spmv_hyb_torch
 from repro_torch.kernels.spmv_dia import spmv_dia_plain
 from repro_torch.kernels.spmv_ell import spmv_ell_torch
 
-_RUNNERS = {"dia": kl.spmv_dia_prepared, "ell": kl.spmv_ell_prepared,
+_RUNNERS = {"dia": kl.spmv_dia_prepared, "bell": kl.spmv_bell_prepared,
+            "ell": kl.spmv_ell_prepared,
             "csr": kl.spmv_csr_prepared, "csr-seg": kl.spmv_csr_seg_prepared,
             "hyb": kl.spmv_hyb_prepared}
 
@@ -47,6 +52,10 @@ def container_spmv(container, x: torch.Tensor, sr) -> torch.Tensor:
             raise ValueError("DIA is plus-times only")
         return spmv_dia_plain(container.data, container.offsets, x,
                               container.n_cols)
+    if isinstance(container, BELL):
+        if sr.name != "plus_times":
+            raise ValueError("BELL is plus-times only")
+        return spmv_bell_torch(container, x)
     if isinstance(container, HYB):
         return spmv_hyb_torch(container, x, sr)
     if isinstance(container, ELL):
@@ -62,12 +71,14 @@ class SpmvPlan:
     `repro_torch.plan.compile` or a `PlanCache`)."""
 
     fingerprint: str                 # digest of the ORIGINAL matrix
-    format_name: str                 # 'dia'|'ell'|'csr'|'csr-seg'|'hyb'
-    container: Any                   # converted format container
+    format_name: str                 # 'dia'|'bell'|'ell'|'csr'|'csr-seg'|'hyb'
+    container: Any                   # converted container (post-reorder)
     prep: Any                        # prepared kernel layout (or None)
     device: torch.device
-    report: Any = None               # StructureReport (None if forced)
-    csr: Any = None                  # the CSR, when kept (SpMM source)
+    reordering: Any = None           # repro_torch.reorder.Reordering
+    report: Any = None               # StructureReport of the permuted
+                                     # matrix (None if forced)
+    csr: Any = None                  # post-reorder CSR, when kept
     threads: int = 1
     use_pallas: bool = True          # False: container oracle, no kernels
     semiring: str = "plus_times"
@@ -91,8 +102,16 @@ class SpmvPlan:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def execute(self, x) -> torch.Tensor:
-        """y = A (⊕,⊗) x through the frozen plan."""
+        """y = A (⊕,⊗) x through the frozen plan (original order)."""
         x = self._input(x)
+        if self.reordering is not None:
+            y = self._run(self.reordering.permute_x(x))
+            return self.reordering.restore_y(y)
+        return self._run(x)
+
+    __call__ = execute
+
+    def _run(self, x: torch.Tensor) -> torch.Tensor:
         sr = resolve(self.semiring)
         if not self.use_pallas:
             if x.dim() != 1 or x.shape[0] != self.n_cols:
@@ -100,15 +119,19 @@ class SpmvPlan:
             return container_spmv(self.container, x, sr)
         return _RUNNERS[self.format_name](self.prep, x, semiring=sr)
 
-    __call__ = execute
-
     def execute_many(self, X) -> torch.Tensor:
-        """Batched SpMV: Y[k] = A (⊕,⊗) X[k] for a (k, n_cols) batch."""
+        """Batched SpMV: Y[k] = A (⊕,⊗) X[k] for a (k, n_cols) batch, in
+        the original order (the batch is gathered through `col_perm` and
+        scattered through `inv_row_perm` at once)."""
         X = self._input(X)
         if X.dim() != 2 or X.shape[1] != self.n_cols:
             raise ValueError(f"execute_many expects (k, {self.n_cols}), "
                              f"got {tuple(X.shape)}")
-        return container_spmv(self.container, X, resolve(self.semiring))
+        sr = resolve(self.semiring)
+        if self.reordering is None:
+            return container_spmv(self.container, X, sr)
+        Y = container_spmv(self.container, self.reordering.permute_x(X), sr)
+        return self.reordering.restore_y(Y)
 
     def power_iteration(self, x0, n_iters: int = 16):
         """Dominant-eigenpair estimate by repeated `execute`.  Returns
@@ -122,9 +145,11 @@ class SpmvPlan:
         return lam, x
 
     def summary(self) -> str:
+        r = self.reordering.strategy if self.reordering is not None \
+            else "none"
         sr_s = "" if self.semiring == "plus_times" else f" sr={self.semiring}"
         return (f"SpmvPlan[{self.fingerprint[:8]}] fmt={self.format_name}"
-                f"{sr_s} reorder=none threads={self.threads}")
+                f"{sr_s} reorder={r} threads={self.threads}")
 
 
 __all__ = ["SpmvPlan", "container_spmv"]

@@ -94,3 +94,22 @@ def same_csr(ref, port) -> bool:
             all(np.asarray(a).dtype == to_numpy(b).dtype and
                 np.array_equal(np.asarray(a), to_numpy(b))
                 for a, b in pairs))
+
+
+def blocked_coo(n: int = 1024, n_blocks: int = 12, seed: int = 0):
+    """(rows, cols, vals) of `n_blocks` dense 8x128 tiles at seeded
+    block-aligned places: the scheme (and random stream) of
+    `tests/test_auto_format.py:_blocked_matrix`, without JAX.  Tiles may
+    overlap, which makes duplicate coordinates."""
+    rng = np.random.default_rng(seed)
+    rr, cc = np.meshgrid(np.arange(8), np.arange(128), indexing="ij")
+    rows, cols = [], []
+    for _ in range(n_blocks):
+        r0 = int(rng.integers(0, n // 8)) * 8
+        c0 = int(rng.integers(0, n // 128)) * 128
+        rows.append((r0 + rr).ravel())
+        cols.append((c0 + cc).ravel())
+    rows = np.concatenate(rows)
+    cols = np.concatenate(cols)
+    vals = rng.normal(size=rows.shape[0]).astype(np.float32)
+    return rows, cols, vals

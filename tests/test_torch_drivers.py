@@ -105,8 +105,8 @@ def test_sources_are_validated():
         tdrv.bfs(port, N, device="cpu")
     with pytest.raises(ValueError, match="out of range"):
         tdrv.sssp(port, -1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        tdrv.bfs(port, 0, reorder="rcm", device="cpu")
+    with pytest.raises(ValueError, match="out of range"):
+        tdrv.bfs(port, N, reorder="rcm", device="cpu")
 
 
 def test_drivers_reuse_the_cached_plan():

@@ -5,15 +5,19 @@ the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
-from _torch_parity import FAMILIES, SEMIRING_NAMES, port_int_operands
+from _torch_parity import (FAMILIES, SEMIRING_NAMES, blocked_coo,
+                           port_int_operands)
 
 from repro_torch.graph import drivers as tdrv
 from repro_torch.graph.semiring import SEMIRINGS
 from repro_torch.kernels import (KERNELS, _layout as tkl, launch_counts,
                                  reset_launch_counts)
+from repro_torch.core.formats import BELL, CSR
 from repro_torch.plan import compile as tcompile, convert
 
 pytestmark = pytest.mark.gpu
@@ -104,7 +108,7 @@ def test_each_wrapper_counts_only_its_launches(cuda):
     p = tcompile(csr, device=cuda)                       # hyb
     p.execute(torch.ones(256, device=cuda))
     assert launch_counts() == {"spmv_dia": 0, "spmv_ell": 1, "spmv_csr": 0,
-                               "spmv_csr_seg": 1}
+                               "spmv_csr_seg": 1, "spmv_bell": 0}
     p.execute_many(torch.ones(2, 256, device=cuda))     # plain SpMM
     assert sum(launch_counts().values()) == 2
     assert set(KERNELS) == set(launch_counts())
@@ -125,3 +129,101 @@ def test_drivers_on_the_card_match_the_cpu(cuda, family, analytic, kw):
         np.testing.assert_allclose(b.values, a.values, rtol=0, atol=1e-6)
     else:
         assert np.array_equal(b.values, a.values)
+
+
+# ---------------------------------------------------------------------------
+# BELL
+# ---------------------------------------------------------------------------
+
+def _bell_case(name, device):
+    """Integer-valued CSRs for the BELL kernel's edge cases."""
+    rng = np.random.default_rng(5)
+    if name == "blocked":
+        rows, cols, _ = blocked_coo(1024, 12, 0)
+        n_rows, n_cols = 1024, 1024
+    elif name == "overlapping-tiles":
+        rows, cols, _ = blocked_coo(256, 40, 3)
+        n_rows, n_cols = 256, 256
+    elif name == "ragged-edges":           # n_rows % 8, n_cols % 128 != 0
+        rows, cols = rng.integers(0, 1001, 3000), rng.integers(0, 300, 3000)
+        n_rows, n_cols = 1001, 300
+    elif name == "empty-block-rows":
+        rows = np.concatenate([rng.integers(0, 8, 500),
+                               rng.integers(200, 216, 500)])
+        cols, n_rows, n_cols = rng.integers(0, 512, 1000), 256, 512
+    elif name == "nnz0":
+        rows = cols = np.zeros(0, np.int64)
+        n_rows, n_cols = 100, 200
+    else:                                  # rows0
+        rows = cols = np.zeros(0, np.int64)
+        n_rows, n_cols = 0, 64
+    vals = rng.integers(-8, 9, len(rows)).astype(np.float32)
+    vals[vals == 0] = 1
+    return CSR.from_coo(rows, cols, vals, n_rows, n_cols, device=device)
+
+
+BELL_CASES = ["blocked", "overlapping-tiles", "ragged-edges",
+              "empty-block-rows", "nnz0", "rows0"]
+
+
+@pytest.mark.parametrize("kind", ["int", "real"])
+@pytest.mark.parametrize("name", BELL_CASES)
+def test_bell_kernel_matches_plain_version_bit_for_bit(cuda, name, kind):
+    """The plain version repeats the kernel's summation order, so the two
+    agree bit for bit on integer and on real values; one launch is
+    counted (none for 0 rows)."""
+    prep = tkl.prepare_bell(BELL.from_csr(_bell_case(name, cuda)))
+    if kind == "real":
+        prep = dataclasses.replace(prep, blocks=torch.rand(
+            prep.blocks.shape, device=cuda) * (prep.blocks != 0))
+    gen = torch.Generator().manual_seed(1)
+    x = (torch.randint(-8, 9, (prep.n_cols,), generator=gen).float()
+         if kind == "int" else torch.rand(prep.n_cols, generator=gen))
+    x = x.to(cuda)
+    args = (prep.blocks, prep.block_cols, prep.block_ptr, prep.pad0, x,
+            prep.n_rows)
+    reset_launch_counts()
+    got = KERNELS["spmv_bell"](*args)
+    torch.cuda.synchronize()
+    from repro_torch.kernels import spmv_bell_plain
+
+    assert torch.equal(got, spmv_bell_plain(*args))
+    assert launch_counts()["spmv_bell"] == (1 if prep.n_rows else 0)
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+@pytest.mark.parametrize("name", ["blocked", "empty-block-rows", "nnz0"])
+def test_bell_kernel_non_finite_first_tile(cuda, name, bad):
+    """Padded block rows add 0 * x[0:128]: NaN where the first tile is
+    not finite, in the kernel as in the plain version (CPU)."""
+    cpu = tkl.prepare_bell(BELL.from_csr(_bell_case(name, "cpu")))
+    gpu = tkl.prepare_bell(BELL.from_csr(_bell_case(name, cuda)))
+    x = torch.ones(cpu.n_cols)
+    x[5] = bad
+    want = tkl.spmv_bell_prepared(cpu, x)
+    got = tkl.spmv_bell_prepared(gpu, x.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.isnan(want).any()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0,
+                               equal_nan=True)
+
+
+def test_bell_and_reordered_plans_on_the_card(cuda):
+    """A blocked graph's PageRank compiles to BELL and launches the BELL
+    kernel once per iteration; a reordered DIA plan launches DIA and
+    returns the unreordered result."""
+    from repro_torch.reorder import rcm
+
+    rows, cols, vals = blocked_coo(2048, 24, 1)
+    adj = CSR.from_coo(rows, cols, vals, 2048, 2048, device=cuda)
+    reset_launch_counts()
+    res = tdrv.pagerank(adj, tol=1e-6, device=cuda)
+    assert res.plan.format_name == "bell"
+    assert launch_counts()["spmv_bell"] == res.n_iters
+    band, x = port_int_operands("fd", 256, 3, "plus_times", device=cuda)
+    p = np.random.default_rng(0).permutation(band.n_rows)
+    scrambled = band.permute(p, p)
+    plan = tcompile(scrambled, reorder=rcm(scrambled), device=cuda)
+    xt = torch.from_numpy(x).to(cuda)
+    assert torch.equal(plan.execute(xt),
+                       tcompile(scrambled, device=cuda).execute(xt))

@@ -127,8 +127,8 @@ def test_plan_refuses_x_on_another_device():
 
 @pytest.mark.parametrize("opts,item", [
     ({"predictor": "auto"}, "A9"), ({"predictor": "model"}, "A9"),
-    ({"reorder": "rcm"}, "A4"), ({"mesh": object()}, "A10"),
-    ({"format": "bell"}, "B5")])
+    ({"reorder": "auto", "predictor": "oracle"}, "A9"),
+    ({"mesh": object()}, "A10"), ({"partition": object()}, "A10")])
 def test_options_outside_the_slice_raise(opts, item):
     m = tg.fd_matrix(64, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
