@@ -3,13 +3,39 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
-It builds the five hand-written CUDA kernels from `src/repro_torch/
+It builds the seven hand-written CUDA kernels from `src/repro_torch/
 kernels/csrc/` and then runs these phases, one output line per step:
 
   device   the card's name and power limit (as nvidia-smi gives them)
            and the kernels' build time;
   small    FD and R-MAT at 2^10 on the card against the port's CPU path,
            which also loads every library before anything is timed;
+  attention the attention entry points of `kernels.ops` at Granite-8B's
+           width (configs/granite_8b.py: 32 query heads, 8 KV heads,
+           head_dim 128), launch counts set to 0 just before and read
+           just after: `ops.flash_attention` on batch 4 x 4096 tokens in
+           bfloat16 -- causal, causal with a 1024-token window, not
+           causal -- and causal in float32 at 2048 tokens, with the KV
+           heads broadcast by `repeat_interleave`; `ops.paged_attention`
+           (decode) for 64 sequences of seeded lengths in [1, 4096] over
+           a paged pool of 16-token blocks whose tables come from the
+           port's `BlockAllocator` after a seeded admit / extend /
+           release churn (about 1.3 GB of pool, written with
+           `write_token`), GQA 32/8 in bfloat16 and once in float32.
+           Each kernel against its plain version on the same inputs
+           (float32 within rtol 1e-4 / atol 1e-5, bfloat16 within one
+           bfloat16 ulp, taken at |value| >= 2^-8), two launches
+           bit-identical, and against the
+           `ref` oracles (bfloat16 within 5e-2, the reference tests'
+           bound); then CUDA-event times beside the plain version's,
+           `scaled_dot_product_attention`'s (flash; paged has no one
+           PyTorch call) and the bound: the larger of the bytes (q, k,
+           v and out once; paged: the K and V rows below each length)
+           at 3.35 TB/s and the visible (q, k) pairs x 4 head_dim flops
+           at the peak for the inputs' type (989 TFLOP/s bfloat16, 67
+           TFLOP/s float32), with `fma_bound_ms` at the float32 FMA
+           units' 67 TFLOP/s and `tc_bound_ms` at the tensor cores'
+           (989 TFLOP/s bfloat16, 495 TF32 for float32) beside it;
   main     the main path at 2^22 rows: `fd_matrix` and `rmat_matrix`,
            each of the four graph drivers through the kernels, with every
            launch count set to 0 just before and read just after; then
@@ -61,7 +87,8 @@ the plain versions (no kernels, so no result either) to rehearse the
 control flow:
 
     python3 chip_smoke.py --cpu-rehearsal --log2n 17 --dia-log2n 12 \
-        --reorder-log2n 14 --bell-log2n 13 --reps 3
+        --reorder-log2n 14 --bell-log2n 13 --reps 3 --attn-seq 256 \
+        --attn-batch 1 --paged-seqs 8 --paged-max-len 512
 """
 from __future__ import annotations
 
@@ -83,13 +110,23 @@ FD_CAP = 1100                       # max_iters of FD bfs/sssp/cc
 PR_TOL = 1e-5                       # PageRank L1 residual tolerance
 PR_RTOL = 1e-3                      # PageRank kernel vs plain, values
 REAL_RTOL, REAL_ATOL = 1e-5, 1e-6   # real-valued plus-times, kernel/plain
+BF16_TC_OPS_PER_S = 989e12          # H100 SXM tensor cores, dense bf16
+TF32_TC_OPS_PER_S = 495e12          # H100 SXM tensor cores, dense TF32
 TPU_KERNELS = {
     "spmv_dia": "src/repro/kernels/spmv_dia.py:48",
     "spmv_ell": "src/repro/kernels/spmv_ell.py:46",
     "spmv_csr": "src/repro/kernels/spmv_csr.py:62",
     "spmv_csr_seg": "src/repro/kernels/spmv_csr_seg.py:67",
     "spmv_bell": "src/repro/kernels/spmv_bell.py:50",
+    "flash_attention": "src/repro/kernels/flash_attention.py:88",
+    "paged_attention": "src/repro/kernels/paged_attention.py:86",
 }
+# Granite-8B's attention widths (src/repro/configs/granite_8b.py)
+N_HEADS, N_KV_HEADS, HEAD_DIM = 32, 8, 128
+ATTN_WINDOW = 1024                  # the smoke's own: no config sets one
+PAGED_BLOCK, PAGED_MAX_BLOCKS = 16, 256
+ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5   # float32 kernel vs plain / oracle
+ORACLE_BF16_TOL = 5e-2              # bfloat16 vs the float32-math oracle
 TILES_PER_1024 = 12                 # dense 8x128 tiles of the blocked graph
 ANALYTICS = ("pagerank", "bfs", "sssp", "connected_components")
 
@@ -401,6 +438,274 @@ def run_bell(log2n, dev, K, CSR, core, drivers, cache, reps):
           f"{res.n_iters} vs {plain.n_iters}")
     compare_pagerank("bell", res, plain)
     return {"plan": res.plan, "counts": counts, "bell": bell}
+
+
+# ---------------------------------------------------------------------------
+# attention: the ops entry points at Granite-8B's width
+# ---------------------------------------------------------------------------
+
+def attn_compare(errs, kname, label, got, want, how):
+    """`how`: "f32" (rtol 1e-4 / atol 1e-5), "ulp" (one bfloat16 ulp) or
+    "oracle" (bfloat16 against float32 math, 5e-2)."""
+    from repro_torch.testing import within_bf16_ulp
+
+    err = float((got.float() - want.float()).abs().max()) \
+        if got.numel() else 0.0
+    ok = bool(torch.isfinite(got.float()).all()) and got.shape == want.shape
+    if how == "f32":
+        ok = ok and bool(torch.allclose(got, want, rtol=ATTN_RTOL,
+                                        atol=ATTN_ATOL))
+        tol = f"rtol {ATTN_RTOL} atol {ATTN_ATOL}"
+    elif how == "ulp":
+        ok = ok and within_bf16_ulp(got, want)
+        tol = "one bf16 ulp"
+    else:
+        ok = ok and bool(torch.allclose(got.float(), want.float(),
+                                        rtol=ORACLE_BF16_TOL,
+                                        atol=ORACLE_BF16_TOL))
+        tol = f"rtol=atol {ORACLE_BF16_TOL}"
+    if how != "oracle":
+        errs[kname] = max(errs.get(kname, 0.0), err)
+    check(ok, f"attention {kname} {label}: differs (max abs err {err:.3g}, "
+              f"{tol})")
+    log(f"attention {kname} {label}: shape={tuple(got.shape)} {tol} "
+        f"ok={ok} max_abs_err={err:.3g}")
+
+
+def visible_pairs(sq, skv, causal, window) -> int:
+    """(q, k) pairs the masks leave visible, per batch·head."""
+    q = np.arange(sq)[:, None]
+    lo = np.zeros((sq, 1), np.int64)
+    hi = np.full((sq, 1), skv, np.int64)              # keys [lo, hi)
+    if causal:
+        hi = np.minimum(hi, q + 1)
+    if window is not None:
+        lo = np.maximum(lo, q - window + 1)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def paged_tables(n_seqs, max_len, seed, serve):
+    """Lengths in [1, max_len] and the tables the port's allocator gives
+    them after a seeded churn: targets grow a few blocks at a time while
+    decoy sequences are admitted and released around them, so every
+    table is scattered over a pool 2.5x the targets' need."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, max_len + 1, n_seqs)
+    need = int(sum(-(-int(n) // PAGED_BLOCK) for n in lengths))
+    cfg = serve.PoolConfig(n_blocks=int(2.5 * need) + 8,
+                           block_size=PAGED_BLOCK,
+                           max_blocks_per_seq=PAGED_MAX_BLOCKS)
+    al = serve.BlockAllocator(cfg)
+    for i in range(n_seqs):
+        al.admit(i, 1)
+    decoys, next_id = [], n_seqs
+    cur = np.ones(n_seqs, np.int64)
+    while (cur < lengths).any():
+        i = int(rng.choice(np.flatnonzero(cur < lengths)))
+        step = int(min(rng.integers(1, 8 * PAGED_BLOCK), lengths[i] - cur[i]))
+        if not al.extend(i, step):
+            raise RuntimeError("paged churn: the pool ran out")
+        cur[i] += step
+        left = need - sum(len(al.tables[j]) for j in range(n_seqs))
+        size = int(rng.integers(1, 16 * PAGED_BLOCK))
+        if rng.random() < 0.3 and al.n_free - left > 2 * size // PAGED_BLOCK:
+            al.admit(next_id, size)
+            decoys.append(next_id)
+            next_id += 1
+        if decoys and rng.random() < 0.2:
+            al.release(decoys.pop(int(rng.integers(0, len(decoys)))))
+    for d in decoys:
+        al.release(d)
+    tables = np.stack([al.table_array(i) for i in range(n_seqs)])
+    return cfg, al, lengths.astype(np.int32), tables
+
+
+def run_attention(args, dev, K):
+    """Drive `ops.flash_attention` and `ops.paged_attention` at
+    Granite-8B's width, check each kernel against its plain version and
+    its oracle, and time both.  Returns (launch counts, errs, times)."""
+    from repro_torch import serve
+    from repro_torch.kernels import ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 plain math
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    b, s = args.attn_batch, args.attn_seq
+    g = N_HEADS // N_KV_HEADS
+    bf = torch.bfloat16
+
+    def flash_inputs(seq, dtype):
+        q = randn((b, N_HEADS, seq, HEAD_DIM), dtype)
+        k = randn((b, N_KV_HEADS, seq, HEAD_DIM), dtype)
+        v = randn((b, N_KV_HEADS, seq, HEAD_DIM), dtype)
+        # the caller broadcasts KV heads, in jnp.repeat's order
+        return q, k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+
+    flash_cases = [("causal", s, bf, True, None),
+                   (f"window {ATTN_WINDOW}", s, bf, True, ATTN_WINDOW),
+                   ("not causal", s, bf, False, None),
+                   ("causal f32", s // 2, torch.float32, True, None)]
+    inputs = {name: flash_inputs(seq, dt)
+              for name, seq, dt, _, _ in flash_cases}
+
+    t0 = time.perf_counter()
+    cfg, al, lengths, tables = paged_tables(args.paged_seqs,
+                                            args.paged_max_len, 5, serve)
+    churn_s = time.perf_counter() - t0
+    pool = serve.init_pool(cfg, N_KV_HEADS, HEAD_DIM, 1, dtype=bf,
+                           device=dev)
+    for t in pool.values():          # stale contents everywhere
+        t.copy_(randn(t.shape, bf))
+    seq = np.repeat(np.arange(len(lengths)), lengths)
+    pos = np.concatenate([np.arange(n) for n in lengths])
+    blocks = tables[seq, pos // PAGED_BLOCK]
+    k_new = randn((len(seq), N_KV_HEADS, HEAD_DIM), bf)
+    v_new = randn((len(seq), N_KV_HEADS, HEAD_DIM), bf)
+    serve.write_token(pool, 0, torch.from_numpy(blocks),
+                      torch.from_numpy(pos % PAGED_BLOCK), k_new, v_new)
+    k_pool, v_pool = pool["k"][0], pool["v"][0]
+    tables_t = torch.from_numpy(tables).to(dev)
+    lengths_t = torch.from_numpy(lengths).to(dev)
+    q_dec = randn((len(lengths), N_HEADS, HEAD_DIM), bf)
+    paged_f32 = (q_dec.float(), k_pool.float(), v_pool.float())
+    log(f"attention paged pool: {cfg.n_blocks} blocks of {PAGED_BLOCK} "
+        f"tokens, {2 * k_pool.numel() * 2 / 2 ** 30:.3f} GiB bf16; "
+        f"{len(lengths)} sequences, {int(lengths.sum())} tokens "
+        f"(lengths {int(lengths.min())}..{int(lengths.max())}), "
+        f"utilization after the churn {al.utilization():.3f}, "
+        f"churn_s={churn_s:.2f}")
+    n_chk = min(4, len(lengths))
+    k_seq, v_seq = serve.gather_kv(pool, 0, tables_t[:n_chk])
+    first = np.concatenate([[0], np.cumsum(lengths)])
+    same = all(torch.equal(k_seq[i, :lengths[i]],
+                           k_new[first[i]:first[i + 1]]) and
+               torch.equal(v_seq[i, :lengths[i]],
+                           v_new[first[i]:first[i + 1]])
+               for i in range(n_chk))
+    check(same, "attention: gather_kv does not return what write_token "
+                "wrote")
+
+    # -- the path: every count set to 0 just before, read just after ------
+    sync(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = {name: ops.flash_attention(*inputs[name], causal=c, window=w)
+            for name, _, _, c, w in flash_cases}
+    outs["paged"] = ops.paged_attention(q_dec, k_pool, v_pool, tables_t,
+                                        lengths_t)
+    outs["paged f32"] = ops.paged_attention(*paged_f32, tables_t, lengths_t)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    log(f"attention launches {json.dumps(counts)} wall_s={wall:.3f}")
+    for k in ("flash_attention", "paged_attention"):
+        check(dev.type != "cuda" or counts[k] > 0,
+              f"attention path launched {k} no time")
+
+    # -- kernels against their plain versions and the oracles --------------
+    errs: dict = {}
+    for name, seq, dt, c, w in flash_cases:
+        q, k, v = (t.reshape(b * N_HEADS, seq, HEAD_DIM)
+                   for t in inputs[name])
+        got = outs[name].reshape(b * N_HEADS, seq, HEAD_DIM)
+        attn_compare(errs, "flash_attention", name, got,
+                     K.flash_attention_plain(q, k, v, c, w),
+                     "f32" if dt == torch.float32 else "ulp")
+        check(torch.equal(got, K.flash_attention(q, k, v, c, w)),
+              f"attention flash_attention {name}: replay differs")
+        one = slice(0, N_HEADS)                 # batch element 0
+        attn_compare(errs, "flash_attention", f"{name} vs mha_ref",
+                     got[one], ref.mha_ref(q[one], k[one], v[one], c, w),
+                     "f32" if dt == torch.float32 else "oracle")
+    for name, args_ in (("paged", (q_dec, k_pool, v_pool)),
+                        ("paged f32", paged_f32)):
+        f32 = args_[0].dtype == torch.float32
+        got = outs[name]
+        attn_compare(errs, "paged_attention", name, got,
+                     K.paged_attention_plain(*args_, tables_t, lengths_t),
+                     "f32" if f32 else "ulp")
+        check(torch.equal(got, K.paged_attention(*args_, tables_t,
+                                                 lengths_t)),
+              f"attention paged_attention {name}: replay differs")
+        few = slice(0, 8)
+        qq, kp, vp = args_
+        attn_compare(errs, "paged_attention", f"{name} vs paged_attention_ref",
+                     got[few], ref.paged_attention_ref(
+                         qq[few], kp.repeat_interleave(g, dim=2),
+                         vp.repeat_interleave(g, dim=2), tables_t[few],
+                         lengths_t[few]), "f32" if f32 else "oracle")
+
+    # -- times ----------------------------------------------------------------
+    reps = max(args.reps // 10, 3)
+    times = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def entry(key, kern, plain, lib, need_bytes, flops, dtype, label):
+        # operations at the card's peak for the inputs' type: bfloat16 on
+        # the tensor cores, float32 outside them; the float32 FMA units'
+        # figure (what this first design runs on) and the TF32 tensor
+        # cores' (float32 inputs) are printed beside it
+        f32 = dtype == torch.float32
+        bytes_ms = 1e3 * need_bytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * flops / (F32_OPS_PER_S if f32 else BF16_TC_OPS_PER_S)
+        bound = max(bytes_ms, ops_ms)
+        fma = 1e3 * flops / F32_OPS_PER_S
+        tc = 1e3 * flops / (TF32_TC_OPS_PER_S if f32 else BF16_TC_OPS_PER_S)
+        ms = time_ms(kern, reps, dev)
+        plain_ms = time_ms(plain, 3, dev)
+        lib_ms = time_ms(lib, reps, dev) if lib is not None else None
+        times[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound, fma_bound_ms=fma, tc_bound_ms=tc,
+                          bound_by="bytes" if bytes_ms >= ops_ms
+                          else "operations")
+        log(f"time {key} [{label}]: kernel_ms={ms:.4f} plain_ms="
+            f"{plain_ms:.4f} library_ms="
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_bytes="
+            f"{need_bytes} flops={flops} bound_ms={bound:.4f} "
+            f"({ms / bound:.2f}x bound, by "
+            f"{times[key]['bound_by']}) fma_bound_ms={fma:.4f} "
+            f"tc_bound_ms={tc:.4f}")
+
+    for name, seq, dt, c, w in flash_cases:
+        q, k, v = inputs[name]
+        qf, kf, vf = (t.reshape(b * N_HEADS, seq, HEAD_DIM)
+                      for t in (q, k, v))
+        mask = None
+        if w is not None:
+            i = torch.arange(seq, device=dev)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
+        pairs = b * N_HEADS * visible_pairs(seq, seq, c, w)
+        entry("flash_attention" if name == "causal"
+              else f"flash_attention {name}",
+              lambda qf=qf, kf=kf, vf=vf, c=c, w=w:
+                  K.flash_attention(qf, kf, vf, c, w),
+              lambda qf=qf, kf=kf, vf=vf, c=c, w=w:
+                  K.flash_attention_plain(qf, kf, vf, c, w),
+              lambda q=q, k=k, v=v, c=c, m=mask:
+                  sdpa(q, k, v, attn_mask=m, is_causal=c and m is None),
+              4 * q.numel() * q.element_size(), 4 * HEAD_DIM * pairs, dt,
+              f"{name}, batch {b} x {N_HEADS} heads x {seq} tokens, "
+              f"{str(dt).split('.')[-1]}")
+    walked = -(-lengths.astype(np.int64) // PAGED_BLOCK)
+    for name, args_ in (("paged", (q_dec, k_pool, v_pool)),
+                        ("paged f32", paged_f32)):
+        qq = args_[0]
+        el = qq.element_size()
+        need = (2 * qq.numel() * el + 2 * int(lengths.sum()) * N_KV_HEADS
+                * HEAD_DIM * el + 4 * int(walked.sum()) + 4 * len(lengths))
+        entry("paged_attention" if name == "paged"
+              else "paged_attention f32",
+              lambda a=args_: K.paged_attention(*a, tables_t, lengths_t),
+              lambda a=args_: K.paged_attention_plain(*a, tables_t,
+                                                      lengths_t),
+              None, need, 4 * HEAD_DIM * N_HEADS * int(lengths.sum()),
+              qq.dtype,
+              f"{name}, {len(lengths)} sequences, GQA "
+              f"{N_HEADS}/{N_KV_HEADS}, block {PAGED_BLOCK}")
+    return counts, errs, times
 
 
 # ---------------------------------------------------------------------------
@@ -732,6 +1037,14 @@ def main(argv=None) -> int:
                     help="rows of the reorder phase's scrambled band")
     ap.add_argument("--bell-log2n", type=int, default=21,
                     help="rows of the bell phase's blocked graph")
+    ap.add_argument("--attn-batch", type=int, default=4,
+                    help="batch of the attention phase's flash runs")
+    ap.add_argument("--attn-seq", type=int, default=4096,
+                    help="tokens of the flash runs (float32: half)")
+    ap.add_argument("--paged-seqs", type=int, default=64,
+                    help="sequences of the paged decode runs")
+    ap.add_argument("--paged-max-len", type=int, default=4096,
+                    help="longest paged sequence (lengths in [1, this])")
     ap.add_argument("--reps", type=int, default=50,
                     help="kernel launches per timing")
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -794,7 +1107,15 @@ def main(argv=None) -> int:
                     torch.device("cpu"), True)
         compare_runs(f"small {fam} 2^10 vs cpu", here, cpu)
     sync(dev)
+
+    # -- attention ------------------------------------------------------------
+    t0 = time.perf_counter()
+    attn_counts, attn_errs, attn_times = run_attention(args, dev, K)
+    log(f"attention phase_s={time.perf_counter() - t0:.1f}")
     if dev.type == "cuda":
+        log(f"attention peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
     # -- main path ------------------------------------------------------------
@@ -851,7 +1172,8 @@ def main(argv=None) -> int:
     log(f"dia pagerank kernels vs plain: iters {dres.n_iters} == "
         f"{dplain.n_iters}")
     compare_pagerank("dia", dres, dplain)
-    phase_counts = {"main": counts, "dia": dia_counts}
+    phase_counts = {"attention": attn_counts, "main": counts,
+                    "dia": dia_counts}
 
     # -- the reordering, per-call and BELL paths ------------------------------
     plans = {}
@@ -891,9 +1213,11 @@ def main(argv=None) -> int:
                  f"{want}; the kernel phases need those layouts"):
         return 1
     errs = kernel_vs_plain(K, SR, plans, dev)
+    errs.update(attn_errs)
 
     # -- timing ------------------------------------------------------------------
     times = timings(K, SR, plans, dev, args.reps)
+    times.update(attn_times)
     if dev.type == "cuda":
         log(f"time peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")

@@ -5,13 +5,16 @@ NVIDIA H100, beside the JAX reference package `repro`.
               structure analysis (byte-identical to the reference's),
               and the per-call `auto_format` / `spmv`
     reorder   RCM, degree sort, cache blocking and their chains
-    kernels   five CUDA kernels (DIA, ELL, padded CSR, segmented CSR,
-              BELL), each with a plain PyTorch version beside it, and
-              the per-call `ops` wrappers
+    kernels   seven CUDA kernels (DIA, ELL, padded CSR, segmented CSR,
+              BELL, flash attention, paged attention), each with a plain
+              PyTorch version beside it, the per-call `ops` wrappers and
+              the attention oracles in `ref`
     plan      compile-once plans: analyze -> reorder -> format -> layout
               -> execute
     graph     semirings and the PageRank / BFS / SSSP / connected
               components drivers
+    serve     the paged KV pool: block allocator, pool, token scatter
+              and gather
 
 Entry points run on the card unless the caller passes device="cpu".
 """

@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("spmv_dia", "spmv_ell", "spmv_csr", "spmv_csr_seg", "spmv_bell")
+SOURCES = ("spmv_dia", "spmv_ell", "spmv_csr", "spmv_csr_seg", "spmv_bell",
+           "flash_attention", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -104,7 +105,7 @@ def function(lib_name: str, fn_name: str, argtypes):
         fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        err = lib.spmv_error_string
+        err = lib.kernel_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _FUNCS[key] = fn
@@ -119,7 +120,8 @@ def check(rc: int, lib_name: str, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
 
 
-PTR, INT, INT64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+PTR, INT, INT64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
 
 
 def on_cuda(*tensors) -> bool:

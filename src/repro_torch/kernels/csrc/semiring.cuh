@@ -8,8 +8,9 @@
 // where its plain PyTorch version rounds.
 #pragma once
 
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "common.cuh"
 
 struct PlusTimes {
   static __device__ __forceinline__ float identity() { return 0.0f; }
@@ -46,9 +47,3 @@ struct MaxTimes {
     case 3: { using SR = MaxTimes; __VA_ARGS__; break; }  \
     default: return (int)cudaErrorInvalidValue;   \
   }
-
-static inline int last_error() { return (int)cudaGetLastError(); }
-
-extern "C" const char* spmv_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

@@ -1,6 +1,6 @@
-"""Per-call SpMV wrappers: prepare the layout, run it, in one call.
+"""Per-call wrappers: prepare the layout, run it, in one call.
 
-Counterpart of the SpMV half of `repro.kernels.ops`.  Each wrapper is
+Counterpart of `repro.kernels.ops`.  Each wrapper is
 `prepare_*` + `spmv_*_prepared` from `_layout`: CUDA containers launch
 the format's kernel, CPU containers run its plain version.  Repeated
 multiplies of one matrix should compile a `repro_torch.plan.SpmvPlan`
@@ -9,8 +9,9 @@ multiplies of one matrix should compile a `repro_torch.plan.SpmvPlan`
 Every wrapper takes `reordering=`: the matrix is then the REORDERED
 operand while x and y stay in the original order (x is gathered through
 `col_perm` before the multiply, y scattered back through `inv_row_perm`
-after).  The attention wrappers of the reference wait for their kernels
-(ROADMAP B6/B7).
+after).  The attention wrappers take (batch, heads, seq, head_dim)
+tensors and launch the flash and paged attention kernels on CUDA
+tensors.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import torch
 from repro_torch.core.formats import BELL, CSR, DIA, ELL, HYB
 from repro_torch.graph.semiring import resolve
 
+from .flash_attention import flash_attention as _flash_attention
+from .paged_attention import paged_attention as _paged_attention
 from ._layout import (prepare_bell, prepare_csr, prepare_csr_seg,
                       prepare_dia, prepare_ell, prepare_hyb,
                       spmv_bell_prepared, spmv_csr_prepared,
@@ -111,5 +114,30 @@ def spmv_hyb(hyb: HYB, x: torch.Tensor, seg_len: int = 512,
                              x, sr)
 
 
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, tables: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """q: (B, H, hd); pools: (n_blocks, block, KVH, hd) with KVH | H;
+    tables: (B, max_blocks); lengths: (B,) -> (B, H, hd).  The kernel
+    maps query head h to KV head h // (H // KVH), the order of the
+    reference's `jnp.repeat`, without materialising the repeat."""
+    return _paged_attention(q, k_pool, v_pool,
+                               tables.to(torch.int32).contiguous(),
+                               lengths.to(torch.int32).contiguous())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None
+                    ) -> torch.Tensor:
+    """q/k/v: (batch, heads, seq, head_dim); GQA callers broadcast kv
+    first (`repeat_interleave` over heads)."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    of = _flash_attention(q.reshape(b * h, sq, d), k.reshape(b * h, skv, d),
+                          v.reshape(b * h, skv, d), causal=causal,
+                          window=window)
+    return of.reshape(b, h, sq, d)
+
+
 __all__ = ["spmv_dia", "spmv_bell", "spmv_ell", "spmv_csr", "spmv_csr_seg",
-           "spmv_hyb"]
+           "spmv_hyb", "paged_attention", "flash_attention"]

@@ -14,6 +14,7 @@ import numpy as np
 
 from repro_torch.core.formats import CSR as TorchCSR, csr_from_numpy
 from repro_torch.core.generators import fd_matrix, rmat_matrix
+from repro_torch.testing import within_bf16_ulp  # noqa: F401 (re-export)
 
 FAMILIES = ("fd", "rmat", "empty", "empty-rows", "single-dense-row")
 SEMIRING_NAMES = ("plus_times", "min_plus", "or_and", "max_times")
@@ -113,3 +114,4 @@ def blocked_coo(n: int = 1024, n_blocks: int = 12, seed: int = 0):
     cols = np.concatenate(cols)
     vals = rng.normal(size=rows.shape[0]).astype(np.float32)
     return rows, cols, vals
+

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import (FAMILIES, SEMIRING_NAMES, blocked_coo,
-                           port_int_operands)
+                           port_int_operands, within_bf16_ulp)
 
 from repro_torch.graph import drivers as tdrv
 from repro_torch.graph.semiring import SEMIRINGS
@@ -108,7 +108,8 @@ def test_each_wrapper_counts_only_its_launches(cuda):
     p = tcompile(csr, device=cuda)                       # hyb
     p.execute(torch.ones(256, device=cuda))
     assert launch_counts() == {"spmv_dia": 0, "spmv_ell": 1, "spmv_csr": 0,
-                               "spmv_csr_seg": 1, "spmv_bell": 0}
+                               "spmv_csr_seg": 1, "spmv_bell": 0,
+                               "flash_attention": 0, "paged_attention": 0}
     p.execute_many(torch.ones(2, 256, device=cuda))     # plain SpMM
     assert sum(launch_counts().values()) == 2
     assert set(KERNELS) == set(launch_counts())
@@ -227,3 +228,181 @@ def test_bell_and_reordered_plans_on_the_card(cuda):
     xt = torch.from_numpy(x).to(cuda)
     assert torch.equal(plan.execute(xt),
                        tcompile(scrambled, device=cuda).execute(xt))
+
+
+# ---------------------------------------------------------------------------
+# flash and paged attention
+# ---------------------------------------------------------------------------
+
+def _randn(shape, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
+
+
+def _close(got, want, dtype):
+    """float32 within rtol 1e-4 / atol 1e-5 (summation order); bfloat16
+    within one bfloat16 ulp, taken at |value| >= 2^-8 (each side rounds
+    its float32 result once)."""
+    if dtype == torch.float32:
+        return bool(torch.allclose(got, want, rtol=1e-4, atol=1e-5))
+    return within_bf16_ulp(got, want)
+
+
+FLASH_GPU_CASES = [
+    # bh, sq, skv, d, causal, window, bq, bk
+    (4, 256, 256, 128, True, None, 128, 128),
+    (4, 512, 512, 64, True, 100, 128, 128),
+    (3, 256, 512, 128, False, None, 128, 128),
+    (2, 256, 128, 64, False, 64, 128, 128),     # rows 191-255: mean of v
+    (2, 256, 256, 64, False, 40, 32, 64),       # a finer function grid
+    (2, 200, 100, 128, True, None, 200, 100),   # ragged CUDA tiles
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_GPU_CASES)
+def test_flash_kernel_matches_its_plain_version(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention_plain
+
+    bh, sq, skv, d, causal, window, bq, bk = case
+    q = _randn((bh, sq, d), dtype, cuda, 0)
+    k = _randn((bh, skv, d), dtype, cuda, 1)
+    v = _randn((bh, skv, d), dtype, cuda, 2)
+    reset_launch_counts()
+    got = KERNELS["flash_attention"](q, k, v, causal, window, bq, bk)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, causal, window, bq, bk)
+    assert got.dtype == dtype and _close(got, want, dtype)
+    again = KERNELS["flash_attention"](q, k, v, causal, window, bq, bk)
+    assert torch.equal(got, again)                 # replays: same bits
+    assert launch_counts()["flash_attention"] == 2
+
+
+def test_flash_masked_rows_are_the_mean_of_v_on_the_card(cuda):
+    k = _randn((2, 128, 64), torch.float32, cuda, 1)
+    v = _randn((2, 128, 64), torch.float32, cuda, 2)
+    q = _randn((2, 256, 64), torch.float32, cuda, 0)
+    got = KERNELS["flash_attention"](q, k, v, causal=False, window=64)
+    torch.testing.assert_close(
+        got[:, 191:], v.mean(dim=1, keepdim=True).expand(2, 65, 64),
+        rtol=1e-4, atol=1e-5)
+
+
+def _paged_case(h, kvh, hd, dtype, device, lengths, n_blocks=64, block=16,
+                max_blocks=8, seed=0):
+    rng = np.random.default_rng(seed)
+    bsz = len(lengths)
+    perm = rng.permutation(n_blocks)[: bsz * max_blocks]
+    tables = torch.from_numpy(perm.reshape(bsz, max_blocks).astype(np.int32))
+    return (_randn((bsz, h, hd), dtype, device, seed),
+            _randn((n_blocks, block, kvh, hd), dtype, device, seed + 1),
+            _randn((n_blocks, block, kvh, hd), dtype, device, seed + 2),
+            tables.to(device),
+            torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+PAGED_GPU_CASES = [
+    # h, kvh, hd, lengths
+    (32, 8, 128, [1, 17, 128, 100, 0, 64]),    # Granite-8B's heads
+    (8, 2, 64, [5, 33, 128]),
+    (4, 4, 32, [0, 0, 7]),
+    (16, 1, 128, [128, 65]),                   # 16 query heads per KV head
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_GPU_CASES)
+def test_paged_kernel_matches_its_plain_version(cuda, case, dtype):
+    from repro_torch.kernels import paged_attention_plain
+
+    h, kvh, hd, lengths = case
+    args = _paged_case(h, kvh, hd, dtype, cuda, lengths)
+    reset_launch_counts()
+    got = KERNELS["paged_attention"](*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_attention"] == 1
+    want = paged_attention_plain(*args)
+    assert got.dtype == dtype and _close(got, want, dtype)
+    zero = [i for i, n in enumerate(lengths) if n == 0]
+    assert torch.equal(got[zero], torch.zeros_like(got[zero]))
+    assert torch.equal(got, KERNELS["paged_attention"](*args))
+    assert launch_counts()["paged_attention"] == 2
+
+
+def test_paged_kernel_never_reads_stale_table_entries(cuda):
+    """Entries past ceil(length / block) hold other blocks or ids outside
+    the pool: the output is the same bits.  An entry inside that lies
+    outside the pool gives NaN for its sequence only."""
+    q, kp, vp, tables, lengths = _paged_case(32, 8, 128, torch.bfloat16,
+                                             cuda, [20, 1, 128, 0])
+    base = KERNELS["paged_attention"](q, kp, vp, tables, lengths)
+    stale = tables.clone()
+    stale[0, 2:] = 3
+    stale[1, 1:] = 2 ** 30
+    stale[3, :] = -7
+    assert torch.equal(KERNELS["paged_attention"](q, kp, vp, stale, lengths),
+                       base)
+    stale[0, 1] = 64                              # n_blocks: outside
+    got = KERNELS["paged_attention"](q, kp, vp, stale, lengths)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[0].float()).all()
+    assert torch.equal(got[1:], base[1:])
+
+
+@pytest.mark.parametrize("what", ["dtype", "head_dim", "group", "int64"])
+def test_attention_kernels_refuse_what_they_do_not_take(cuda, what):
+    """Unsupported inputs raise on the card; nothing falls back."""
+    dt = torch.float16 if what == "dtype" else torch.float32
+    d = 96 if what == "head_dim" else 64
+    q = _randn((2, 128, d), dt, cuda, 0)
+    reset_launch_counts()
+    if what in ("dtype", "head_dim"):
+        with pytest.raises(ValueError):
+            KERNELS["flash_attention"](q, q, q)
+    h, kvh = (32, 1) if what == "group" else (8, 2)
+    args = list(_paged_case(h, kvh, d, dt, cuda, [5, 9]))
+    if what == "int64":
+        args[3] = args[3].long()
+    with pytest.raises(ValueError):
+        KERNELS["paged_attention"](*args)
+    assert sum(launch_counts().values()) == 0
+
+
+def test_ops_and_pool_on_the_card(cuda):
+    """`ops` attention through a pool written with `write_token` from an
+    allocator's tables, against the plain versions; one launch each."""
+    from repro_torch.kernels import (flash_attention_plain, ops,
+                                     paged_attention_plain)
+    from repro_torch.serve import (BlockAllocator, PoolConfig, gather_kv,
+                                   init_pool, write_token)
+
+    cfg = PoolConfig(n_blocks=64, block_size=16, max_blocks_per_seq=8)
+    al = BlockAllocator(cfg)
+    lengths = [40, 7, 100]
+    for sid, n in enumerate(lengths):
+        al.admit(sid, n)
+    pool = init_pool(cfg, 8, 128, 1, dtype=torch.bfloat16, device=cuda)
+    sid, pos = np.repeat(np.arange(3), lengths), np.concatenate(
+        [np.arange(n) for n in lengths])
+    blk = np.array([al.tables[s][p // 16] for s, p in zip(sid, pos)])
+    kn = _randn((len(sid), 8, 128), torch.float32, cuda, 3)
+    vn = _randn((len(sid), 8, 128), torch.float32, cuda, 4)
+    write_token(pool, 0, torch.from_numpy(blk), torch.from_numpy(pos % 16),
+                kn, vn)
+    tables = torch.from_numpy(np.stack([al.table_array(s) for s in
+                                        range(3)])).to(cuda)
+    lens = torch.tensor(lengths, device=cuda)
+    k_seq, _ = gather_kv(pool, 0, tables)
+    assert torch.equal(k_seq[0, :40].float(), kn[:40].bfloat16().float())
+    q = _randn((3, 32, 128), torch.bfloat16, cuda, 5)
+    reset_launch_counts()
+    got = ops.paged_attention(q, pool["k"][0], pool["v"][0], tables, lens)
+    qf = _randn((1, 4, 256, 128), torch.bfloat16, cuda, 6)
+    fl = ops.flash_attention(qf, qf, qf, causal=True, window=64)
+    assert launch_counts()["paged_attention"] == 1
+    assert launch_counts()["flash_attention"] == 1
+    assert within_bf16_ulp(got, paged_attention_plain(
+        q, pool["k"][0], pool["v"][0], tables.int(), lens.int()))
+    assert within_bf16_ulp(fl[0], flash_attention_plain(
+        qf[0], qf[0], qf[0], True, 64))
