@@ -6,8 +6,12 @@
 It builds the seven hand-written CUDA kernels from `src/repro_torch/
 kernels/csrc/` and then runs these phases, one output line per step:
 
-  device   the card's name and power limit (as nvidia-smi gives them)
-           and the kernels' build time;
+  device   the card's name and power limit (as nvidia-smi gives them),
+           the kernels' build time, and the flash library's SASS per
+           kernel (`cuobjdump -sass`: HGMMA, HMMA and FFMA counts, with
+           registers and local memory from `--dump-resource-usage`):
+           the run fails unless every bfloat16 instance runs on the
+           tensor cores (HGMMA or HMMA);
   small    FD and R-MAT at 2^10 on the card against the port's CPU path,
            which also loads every library before anything is timed;
   attention the attention entry points of `kernels.ops` at Granite-8B's
@@ -35,7 +39,9 @@ kernels/csrc/` and then runs these phases, one output line per step:
            at the peak for the inputs' type (989 TFLOP/s bfloat16, 67
            TFLOP/s float32), with `fma_bound_ms` at the float32 FMA
            units' 67 TFLOP/s and `tc_bound_ms` at the tensor cores'
-           (989 TFLOP/s bfloat16, 495 TF32 for float32) beside it;
+           (989 TFLOP/s bfloat16, 495 TF32 for float32) beside it, and
+           each flash cell's achieved TFLOP/s (those flops over
+           kernel_ms);
   main     the main path at 2^22 rows: `fd_matrix` and `rmat_matrix`,
            each of the four graph drivers through the kernels, with every
            launch count set to 0 just before and read just after; then
@@ -95,6 +101,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -520,6 +527,54 @@ def paged_tables(n_seqs, max_len, seed, serve):
     return cfg, al, lengths.astype(np.int32), tables
 
 
+SASS_OPS = ("HGMMA", "HMMA", "FFMA")
+
+
+def flash_sass(_build) -> None:
+    """Log each flash kernel's HGMMA / HMMA / FFMA instruction counts and
+    its registers and local memory; fail unless every bfloat16 instance
+    issues tensor-core instructions."""
+    lib = str(_build.library_path("flash_attention"))
+    tool = str(Path(_build.nvcc()).parent / "cuobjdump")
+
+    def dump(flag):
+        out = subprocess.run([tool, flag, lib], capture_output=True,
+                             text=True, timeout=120)
+        check(out.returncode == 0, f"cuobjdump {flag} failed: "
+              f"{out.stderr.strip()[-300:]}")
+        return out.stdout
+
+    def name(mangled):
+        m = re.search(r"flash_(\w+?)_kernelILi(\d+)E", mangled)
+        return f"{m.group(1)} d{m.group(2)}" if m else mangled
+
+    counts, fn = {}, None
+    for line in dump("-sass").splitlines():
+        if "Function :" in line:
+            fn = name(line.split("Function :")[1].strip())
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                      line)
+        if fn is not None and m and m.group(1) in SASS_OPS:
+            counts[fn][m.group(1)] += 1
+    usage, fn = {}, None
+    for line in dump("--dump-resource-usage").splitlines():
+        if line.strip().startswith("Function "):
+            fn = name(line.strip()[len("Function "):].rstrip(":"))
+        elif fn is not None and "REG:" in line:
+            usage[fn] = " ".join(w for w in line.split()
+                                 if w.split(":")[0] in ("REG", "LOCAL"))
+    for fn, c in sorted(counts.items()):
+        log(f"device flash SASS {fn}: " + " ".join(
+            f"{op}={c[op]}" for op in SASS_OPS) + f" {usage.get(fn, '')}")
+    bf16 = [fn for fn in counts if fn.startswith("bf16")]
+    check(len(bf16) == 2 and all(counts[fn]["HGMMA"] + counts[fn]["HMMA"]
+                                 for fn in bf16),
+          f"flash bfloat16 instances {bf16} do not all run on the tensor "
+          "cores (no HGMMA or HMMA)")
+
+
 def run_attention(args, dev, K):
     """Drive `ops.flash_attention` and `ops.paged_attention` at
     Granite-8B's width, check each kernel against its plain version and
@@ -646,8 +701,8 @@ def run_attention(args, dev, K):
     def entry(key, kern, plain, lib, need_bytes, flops, dtype, label):
         # operations at the card's peak for the inputs' type: bfloat16 on
         # the tensor cores, float32 outside them; the float32 FMA units'
-        # figure (what this first design runs on) and the TF32 tensor
-        # cores' (float32 inputs) are printed beside it
+        # figure (what the float32 flash kernel runs on) and the TF32
+        # tensor cores' (float32 inputs) are printed beside it
         f32 = dtype == torch.float32
         bytes_ms = 1e3 * need_bytes / HBM_BYTES_PER_S
         ops_ms = 1e3 * flops / (F32_OPS_PER_S if f32 else BF16_TC_OPS_PER_S)
@@ -661,7 +716,9 @@ def run_attention(args, dev, K):
                           bound_ms=bound, fma_bound_ms=fma, tc_bound_ms=tc,
                           bound_by="bytes" if bytes_ms >= ops_ms
                           else "operations")
-        log(f"time {key} [{label}]: kernel_ms={ms:.4f} plain_ms="
+        rate = (f" tflops={flops / ms / 1e9:.1f}"
+                if key.startswith("flash") else "")
+        log(f"time {key} [{label}]: kernel_ms={ms:.4f}{rate} plain_ms="
             f"{plain_ms:.4f} library_ms="
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_bytes="
             f"{need_bytes} flops={flops} bound_ms={bound:.4f} "
@@ -1089,6 +1146,7 @@ def main(argv=None) -> int:
         log(f"device torch {torch.__version__} cuda {torch.version.cuda} "
             f"kind={torch.cuda.get_device_name(0)} "
             f"count={torch.cuda.device_count()} nvcc_build_s={build_s:.2f}")
+        flash_sass(_build)
         # one launch of each kernel on a tiny matrix; with the small phase
         # below (every driver, so every PyTorch kernel and library the
         # steppers use), this keeps one-time loading out of the main

@@ -20,7 +20,8 @@ from _torch_parity import within_bf16_ulp
 from repro.kernels import ops as jops, ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.serve import kv_blocks as jkv
-from repro_torch.kernels import flash_attention, ops, paged_attention, ref
+from repro_torch.kernels import (flash_attention, flash_attention_plain,
+                                 ops, paged_attention, ref)
 from repro_torch.serve import kv_blocks as tkv
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -118,6 +119,48 @@ def test_flash_bf16_within_one_ulp_of_the_pallas_kernel(causal, window):
     if window is None or causal:
         np.testing.assert_allclose(_np(got), _np(oracle), rtol=5e-2,
                                    atol=5e-2)
+
+
+def _bf16_kernel_rounding(q, k, v, split, bk=128):
+    """The bfloat16 CUDA kernel's arithmetic, causal, in plain torch: the
+    online softmax over bk-key tiles in float32, l summed from the
+    float32 p, and p·v on the tensor cores' bfloat16 operands -- p split
+    into hi = bf16(p) and lo = bf16(p - hi) (`split`), or p rounded to
+    bf16 once.  Every row sees key 0 in the first tile, so the pairs a
+    causal mask hides contribute 0, as the sentinel gives them there."""
+    bh, sq, d = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((bh, sq, 1), -1e30)
+    l = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    rows = torch.arange(sq)[:, None]
+    for c0 in range(0, k.shape[1], bk):
+        s = qf @ kf[:, c0:c0 + bk].transpose(1, 2) / d ** 0.5
+        s = torch.where(rows >= torch.arange(c0, c0 + bk)[None, :], s,
+                        -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, c0:c0 + bk]
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, c0:c0 + bk]
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l).bfloat16()
+
+
+def test_flash_bf16_kernel_needs_the_lo_term_of_p():
+    """Why the bfloat16 kernel carries p's lo term: with it the kernel's
+    rounding stays within one bf16 ulp of the float32 plain version;
+    with p rounded to bf16 once, as the usual tensor-core design does,
+    it does not (bh 8, 1024 tokens, d 128, causal)."""
+    q, k, v = (_t(a, torch.bfloat16) for a in _qkv(8, 1024, 1024, 128, 0))
+    want = flash_attention_plain(q, k, v, causal=True)
+    assert within_bf16_ulp(_bf16_kernel_rounding(q, k, v, split=True), want)
+    assert not within_bf16_ulp(_bf16_kernel_rounding(q, k, v, split=False),
+                               want)
 
 
 @pytest.mark.parametrize("sq,skv", [(200, 128), (128, 200), (384, 320)])

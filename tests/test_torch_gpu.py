@@ -249,13 +249,20 @@ def _close(got, want, dtype):
 
 
 FLASH_GPU_CASES = [
-    # bh, sq, skv, d, causal, window, bq, bk
+    # bh, sq, skv, d, causal, window, bq, bk[, q scale]
     (4, 256, 256, 128, True, None, 128, 128),
     (4, 512, 512, 64, True, 100, 128, 128),
     (3, 256, 512, 128, False, None, 128, 128),
     (2, 256, 128, 64, False, 64, 128, 128),     # rows 191-255: mean of v
     (2, 256, 256, 64, False, 40, 32, 64),       # a finer function grid
     (2, 200, 100, 128, True, None, 200, 100),   # ragged CUDA tiles
+    # 3 x 3 tiles of 128: absent, all-visible and mixed tiles
+    (2, 384, 384, 128, True, None, 128, 128),
+    (2, 320, 192, 64, True, 96, 64, 64),        # lengths off the tile
+    (2, 256, 256, 64, True, 1, 128, 128),       # window 1: the diagonal
+    (3, 128, 16, 128, True, None, 128, 128),    # skv below one tile
+    # a peaked softmax: q scaled by 8, so lo and the exp range matter
+    (2, 256, 256, 128, True, None, 128, 128, 8.0),
 ]
 
 
@@ -264,8 +271,9 @@ FLASH_GPU_CASES = [
 def test_flash_kernel_matches_its_plain_version(cuda, case, dtype):
     from repro_torch.kernels import flash_attention_plain
 
-    bh, sq, skv, d, causal, window, bq, bk = case
-    q = _randn((bh, sq, d), dtype, cuda, 0)
+    bh, sq, skv, d, causal, window, bq, bk, *q_scale = case
+    q = (_randn((bh, sq, d), torch.float32, cuda, 0)
+         * (q_scale[0] if q_scale else 1.0)).to(dtype)
     k = _randn((bh, skv, d), dtype, cuda, 1)
     v = _randn((bh, skv, d), dtype, cuda, 2)
     reset_launch_counts()
