@@ -47,7 +47,9 @@ kernels/csrc/` and then runs these phases, one output line per step:
            launch count set to 0 just before and read just after; then
            the same runs on the plain PyTorch path (use_pallas=False) on
            the card: same iteration counts, BFS/SSSP/CC values equal,
-           PageRank within rtol 1e-3 (values near 2^-22);
+           PageRank within rtol 1e-3 (values near 2^-22); then
+           `execute_many` on real-valued X over both R-MAT PageRank
+           plans: two calls bit-identical, each row equal to `execute`;
   dia      FD PageRank at 2^16, where the compiler picks DIA, counted the
            same way, against its plain path;
   reorder  a banded matrix (bandwidth 8) at 2^22 under a seeded symmetric
@@ -70,7 +72,8 @@ kernels/csrc/` and then runs these phases, one output line per step:
            rtol 1e-5 / atol 1e-6 on real-valued plus-times; BELL, whose
            plain version repeats its summation order, bit-identical on
            real values too, and NaN where its plain version is NaN when
-           the first x tile holds a non-finite value;
+           the first x tile, or a column its blocks drop, holds a
+           non-finite value;
   time     per kernel at the main path's shapes: CUDA-event time of many
            launches, its plain version's time, a torch.sparse CSR
            product's time where one computes the same function, and the
@@ -78,12 +81,15 @@ kernels/csrc/` and then runs these phases, one output line per step:
            move (its inputs read once, y written once) at 3.35 TB/s and
            its float32 operations at 67 TFLOP/s.  DIA moves its band,
            ELL its (W, n) slab, padded CSR its nonzeros and row
-           pointers, segmented CSR its heavy nonzeros and the base.
-           The uniform 8 nnz + 12 n bytes of the unpadded CSR is
-           printed beside it as `csr_bound_ms`.  DIA is timed on the
-           reordered 2^22 band (and on FD 2^16), BELL on the blocked
-           PageRank layout's real blocks, with the padded container's
-           bytes beside it as `padded_bound_ms`.
+           pointers, segmented CSR its heavy nonzeros, x, the base and
+           y (each of its two passes' device time read from a
+           torch.profiler trace of the real launch), BELL its blocks' kept
+           columns and their masks and offsets.  The uniform 8 nnz + 12
+           n bytes of the unpadded CSR is printed beside it as
+           `csr_bound_ms`.  DIA is timed on the reordered 2^22 band (and
+           on FD 2^16), BELL on the blocked PageRank layout (and on the
+           per-call layout of the dense tiles), with the padded
+           container's bytes beside it as `padded_bound_ms`.
 
 Then one JSON line `{"kernels": [...]}` and, last,
 `{"ok": true, "device": {...}}`.  It exits nonzero and prints no result
@@ -236,6 +242,28 @@ def compare_runs(tag, kern, plain):
             check(same, f"{tag} {name}: values differ from the plain path")
             log(f"{tag} {name}: kernels == plain: {same}, "
                 f"finite={int(np.isfinite(a.values).sum())}")
+
+
+def execute_many_replays(kern_plan, plain_plan, dev, reps):
+    """`execute_many` on real-valued X over the R-MAT PageRank plans: a
+    second call equals the first bit for bit and each row equals
+    `execute` of that row, through the kernels (one `execute` per row)
+    and through the plain oracle (ordered sums); then its time beside
+    that of k calls of `execute`."""
+    gen = torch.Generator().manual_seed(5)
+    X = (torch.rand((4, kern_plan.n_cols), generator=gen) * 2 - 1).to(dev)
+    for tag, plan in (("kernels", kern_plan), ("plain", plain_plan)):
+        Y = plan.execute_many(X)
+        same = torch.equal(plan.execute_many(X), Y)
+        rows = all(torch.equal(plan.execute(X[k]), Y[k]) for k in range(4))
+        check(same and rows, f"execute_many rmat {tag}: replay equal "
+              f"{same}, rows equal execute {rows}")
+        many_ms = time_ms(lambda: plan.execute_many(X), max(reps // 10, 2),
+                          dev)
+        one_ms = time_ms(lambda: plan.execute(X[0]), max(reps // 10, 2), dev)
+        log(f"execute_many rmat pagerank {tag}, k=4 real X: replay "
+            f"bit-identical {same}, rows == execute {rows}; "
+            f"execute_many_ms={many_ms:.4f} execute_ms={one_ms:.4f}")
 
 
 # ---------------------------------------------------------------------------
@@ -418,9 +446,10 @@ def run_bell(log2n, dev, K, CSR, core, drivers, cache, reps):
     prep = res.plan.prep
     c = res.plan.container
     log(f"bell pagerank layout: blocks_per_row={c.blocks_per_row} "
-        f"real_blocks={prep.blocks.shape[0]} "
-        f"real_GiB={prep.blocks.numel() * 4 / 2 ** 30:.3f} "
-        f"padded_GiB={c.storage_bytes() / 2 ** 30:.3f}")
+        f"real_blocks={prep.masks.shape[0]} kept_values="
+        f"{prep.values.numel()} layout_GiB="
+        f"{layout_bytes(prep.values, prep.val_ptr, prep.masks) / 2 ** 30:.3f}"
+        f" padded_GiB={c.storage_bytes() / 2 ** 30:.3f}")
     report_run("bell", "blocked", "pagerank", res, wall,
                spmv=spmv_ms(res.plan, dev))
     check(torch.equal(yi, core.spmv(bell_int, xi, use_pallas=False)),
@@ -444,7 +473,7 @@ def run_bell(log2n, dev, K, CSR, core, drivers, cache, reps):
     check(plain.n_iters == res.n_iters, f"bell pagerank: iterations "
           f"{res.n_iters} vs {plain.n_iters}")
     compare_pagerank("bell", res, plain)
-    return {"plan": res.plan, "counts": counts, "bell": bell}
+    return {"plan": res.plan, "counts": counts, "bell": bell, "adj": adj}
 
 
 # ---------------------------------------------------------------------------
@@ -823,6 +852,8 @@ def compare(errs, kname, label, got, want, exact):
 def kernel_vs_plain(K, SR, plans, dev):
     """Every kernel on the main path's layouts against its plain
     version.  Returns {kernel: max abs error}."""
+    from repro_torch.kernels.spmv_bell import column_mask
+
     gen = torch.Generator().manual_seed(0)
     errs: dict = {}
     fd_pr, dia_pr = plans[("fd", "pagerank")], plans[("dia", "pagerank")]
@@ -849,26 +880,37 @@ def kernel_vs_plain(K, SR, plans, dev):
             continue
         p = plans[key].prep
         for kind in ("int", "real"):
-            blocks = int_values(p.blocks, "plus_times", gen) \
-                if kind == "int" else p.blocks
+            q = dataclasses.replace(p, values=int_values(
+                p.values, "plus_times", gen)) if kind == "int" else p
             x = x_for("plus_times", p.n_cols, gen, dev, kind)
-            args = (blocks, p.block_cols, p.block_ptr, p.pad0, x, p.n_rows)
             compare(errs, "spmv_bell", f"{label} {kind}",
-                    K.spmv_bell(*args), K.spmv_bell_plain(*args), exact=True)
+                    K.spmv_bell(q, x), K.spmv_bell_plain(q, x), exact=True)
+    nan_cases = []
     if ("bell", "small") in plans:
-        p = plans[("bell", "small")].prep
-        x = torch.ones(p.n_cols, device=dev)
+        x = torch.ones(plans[("bell", "small")].n_cols, device=dev)
         x[3] = float("inf")
-        args = (p.blocks, p.block_cols, p.block_ptr, p.pad0, x, p.n_rows)
-        got, want = K.spmv_bell(*args), K.spmv_bell_plain(*args)
-        same = torch.equal(torch.isnan(got), torch.isnan(want)) and \
-            bool(torch.isnan(want).any()) and \
-            torch.equal(got[~torch.isnan(want)], want[~torch.isnan(want)])
-        check(same, "kernel spmv_bell: the first tile's inf is not "
-              "handled as its plain version handles it")
-        log(f"kernel spmv_bell blocked 2^10 inf in the first tile: "
-            f"nan rows {int(torch.isnan(got).sum())} of {got.shape[0]}, "
-            f"same as plain: {same}")
+        nan_cases.append(("blocked 2^10, inf in the first tile",
+                          plans[("bell", "small")].prep, x))
+    if ("bell", "pagerank") in plans:
+        # inf in columns the transposed tiles' blocks drop: NaN over every
+        # row of those blocks, from the dropped-column check alone
+        p = plans[("bell", "pagerank")].prep
+        kept = column_mask(p.masks[:64])
+        x = x_for("plus_times", p.n_cols, gen, dev, "real")
+        for b in range(0, 64, 16):
+            col = int(p.block_cols[b]) * 128 + \
+                int(torch.nonzero(~kept[b])[0])
+            x[col] = float("inf")
+        nan_cases.append(("blocked pagerank, inf in dropped columns", p, x))
+    for label, p, x in nan_cases:
+        got, want = K.spmv_bell(p, x), K.spmv_bell_plain(p, x)
+        nan = torch.isnan(want)
+        same = torch.equal(torch.isnan(got), nan) and bool(nan.any()) and \
+            torch.equal(got[~nan], want[~nan])
+        check(same, f"kernel spmv_bell {label}: NaN rows differ from its "
+              "plain version's")
+        log(f"kernel spmv_bell {label}: nan rows {int(torch.isnan(got).sum())}"
+            f" of {got.shape[0]}, same as plain: {same}")
 
     # padded CSR: the FD PageRank layout under every semiring
     p = fd_pr.prep
@@ -950,6 +992,30 @@ def time_ms(fn, reps: int, dev) -> float:
     return start.elapsed_time(end) / reps
 
 
+def trace_ms(fn, reps: int, dev, kernels) -> dict:
+    """Device time of each named CUDA kernel per `fn()` call, from a
+    torch.profiler trace of `reps` calls: {name: ms, or None when the
+    trace holds no device time for it (and on the CPU)}."""
+    if dev.type != "cuda":
+        return dict.fromkeys(kernels)
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(kernels, 0.0)
+    for ev in prof.key_averages():
+        for name in kernels:
+            if name in ev.key:
+                us[name] += getattr(ev, "device_time_total",
+                                    getattr(ev, "cuda_time_total", 0.0))
+    return {name: (t / 1e3 / reps if t > 0 else None)
+            for name, t in us.items()}
+
+
 def sparse_csr(rows, cols, vals, n_rows, n_cols):
     coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]),
                                   vals, (n_rows, n_cols))
@@ -960,8 +1026,10 @@ def layout_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def timings(K, SR, plans, dev, reps):
-    """{kernel: dict(ms, plain_ms, library_ms, bound_ms, shape, pad)}."""
+def timings(K, SR, plans, dev, reps, adjacency=None):
+    """{kernel: dict(ms, plain_ms, library_ms, bound_ms, shape, pad)};
+    `adjacency`: the blocked graph's CSR, of which the per-call BELL plan
+    holds the blocks."""
     gen = torch.Generator().manual_seed(1)
     out = {}
 
@@ -1008,20 +1076,40 @@ def timings(K, SR, plans, dev, reps):
               (p.band, p.offsets), f"{label}, plus_times, {D} diagonals",
               "spmv_dia" if "spmv_dia" not in out else f"spmv_dia {label}")
 
-    # BELL: the real blocks (4 bm bn bytes and a block column each), x, y
-    if ("bell", "pagerank") in plans:
-        plan = plans[("bell", "pagerank")]
-        p, c, bell = plan.prep, plan.csr, plan.container
-        nb, bm = p.blocks.shape[0], p.blocks.shape[1]
+    # BELL: each real block's kept columns (4 bm k bytes), its mask, value
+    # offset and block column, the block row pointers and pad flags, x, y;
+    # timed on the blocked PageRank layout (the JSON entry: transposed
+    # tiles, 8 kept columns a block) and on the per-call layout of the
+    # blocked adjacency (dense tiles, all 128 kept)
+    for key, name, label in ((("bell", "pagerank"), "spmv_bell",
+                              "blocked pagerank"),
+                             (("bell", "percall"), "spmv_bell per-call",
+                              "blocked adjacency per-call")):
+        if key not in plans:
+            continue
+        plan = plans[key]
+        p, bell = plan.prep, plan.container
+        # the per-call plan holds no CSR: its blocks came from `adjacency`
+        c = plan.csr if plan.csr is not None else adjacency
+        nb = p.masks.shape[0]
         x = torch.rand(p.n_cols, generator=gen).to(dev)
         A = sparse_csr(*_coo(c), c.n_rows, c.n_cols)
+        nnz = c.nnz
         io = 4 * p.n_cols + 4 * p.n_rows
-        args = (p.blocks, p.block_cols, p.block_ptr, p.pad0, x, p.n_rows)
-        entry("spmv_bell", lambda: K.spmv_bell(*args),
-              lambda: K.spmv_bell_plain(*args), lambda: A @ x,
-              (4 * bm * 128 + 4) * nb + io, 2 * bm * 128 * nb, c.nnz,
-              c.n_rows, (p.blocks, p.block_cols, p.block_ptr, p.pad0),
-              f"blocked pagerank, {nb} real blocks of {bm}x128")
+        tensors = (p.values, p.val_ptr, p.masks, p.block_cols, p.block_ptr,
+                   p.pad0)
+        entry("spmv_bell", lambda p=p, x=x: K.spmv_bell(p, x),
+              lambda p=p, x=x: K.spmv_bell_plain(p, x),
+              lambda A=A, x=x: A @ x,
+              layout_bytes(*tensors) + io, 2 * p.values.numel(), nnz,
+              p.n_rows, tensors,
+              f"{label}, {nb} real blocks of {p.bm}x128, "
+              f"{p.values.numel() // max(nb * p.bm, 1)} kept columns a "
+              f"block on average", name)
+    if ("bell", "pagerank") in plans:
+        bell = plans[("bell", "pagerank")].container
+        bm = bell.bm
+        io = 4 * bell.n_cols + 4 * bell.n_rows
         padded = 1e3 * (bell.storage_bytes() + io) / HBM_BYTES_PER_S
         out["spmv_bell"]["padded_bound_ms"] = padded
         log(f"time spmv_bell padded_bound_ms={padded:.4f} (the padded "
@@ -1065,13 +1153,41 @@ def timings(K, SR, plans, dev, reps):
     base = torch.rand(hp.n_rows, generator=gen).to(dev)
     A = sparse_csr(hyb.hrows, hyb.hcols, hyb.hvals, hyb.n_rows, hyb.n_cols)
     args = (hp, x, pt)
+    n_win = hp.win_row.shape[0] - 1
     entry("spmv_csr_seg", lambda: K.spmv_csr_seg(*args, base=base),
           lambda: K.spmv_csr_seg_plain(*args, base=base), lambda: A @ x,
           8 * hyb.heavy_nnz + 4 * hp.n_cols + 8 * hp.n_rows,
           2 * hyb.heavy_nnz + hp.n_rows, hyb.heavy_nnz, hp.n_rows,
-          (hp.vals, hp.cols, hp.rid, hp.order, hp.merge_ptr, hp.merge_idx,
-           hp.long_rows),
-          "rmat pagerank heavy stream, plus_times")
+          (hp.vals, hp.cols, hp.row_ptr, hp.win_row, hp.split_rows),
+          f"rmat pagerank heavy stream, plus_times, {n_win} windows of "
+          f"{hp.window} items, {hp.split_rows.shape[0]} split rows")
+    # each pass's device time in the real launch -- the windows
+    # (products, in-window folds, y and the carries) and the split rows'
+    # carry folds -- from a trace of the kernel's calls
+    passes = {"spmv_seg_window_kernel": "pass 1 (windows)",
+              "spmv_seg_split_kernel": "pass 2 (split rows)"}
+    traced = trace_ms(lambda: K.spmv_csr_seg(*args, base=base), reps, dev,
+                      passes)
+    both = sum(t or 0.0 for t in traced.values())
+    for kname, what in passes.items():
+        t = traced[kname]
+        log(f"time spmv_csr_seg {what}, traced: kernel_ms="
+            + ("not measured (no device time in the trace)" if t is None
+               else f"{t:.4f} ({100 * t / both:.1f}% of both passes' "
+                    f"{both:.4f})"))
+    out["spmv_csr_seg"].update(
+        pass1_ms=traced["spmv_seg_window_kernel"],
+        pass2_ms=traced["spmv_seg_split_kernel"])
+    # the same kernel on the same stream with every column index 0: each
+    # x gather then hits one cached line, so the gap to the real time is
+    # what the random gathers of x cost
+    probe = dataclasses.replace(hp, cols=torch.zeros_like(hp.cols))
+    probe_ms = time_ms(lambda: K.spmv_csr_seg(probe, x, pt, base=base), reps,
+                       dev)
+    log(f"time spmv_csr_seg gather probe (every column 0): kernel_ms="
+        f"{probe_ms:.4f}, {probe_ms / out['spmv_csr_seg']['ms']:.3f} of the "
+        f"real stream's")
+    del probe
     return out
 
 
@@ -1203,6 +1319,8 @@ def main(argv=None) -> int:
         for name in ANALYTICS:
             report_run("plain", fam, name, *plain[fam][name])
         compare_runs(f"main {fam}", kern[fam], plain[fam])
+    execute_many_replays(kern["rmat"]["pagerank"][0].plan,
+                         plain["rmat"]["pagerank"][0].plan, dev, args.reps)
 
     # -- DIA path -------------------------------------------------------------
     nd = 1 << args.dia_log2n
@@ -1274,7 +1392,8 @@ def main(argv=None) -> int:
     errs.update(attn_errs)
 
     # -- timing ------------------------------------------------------------------
-    times = timings(K, SR, plans, dev, args.reps)
+    times = timings(K, SR, plans, dev, args.reps,
+                    rb["adj"] if rb is not None else None)
     times.update(attn_times)
     if dev.type == "cuda":
         log(f"time peak device memory "

@@ -14,8 +14,11 @@ layout (B, 128, 128) for a 9-wide FD matrix.  The contracts are kept:
   * padding slots hold the semiring's absorbing value, and an ELL or HYB
     container padded with anything else is refused;
   * nnz = 0 and 0-row inputs work (the kernels are not launched on an
-    empty grid);
-  * the HYB heavy stream stays sorted by column.
+    empty grid).
+
+The HYB heavy stream, which the reference keeps sorted by column for the
+TPU, is put in row order here: the card's kernel folds each row's run
+and writes two carries per window instead of one partial per nonzero.
 """
 from __future__ import annotations
 
@@ -25,13 +28,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.formats import BELL, CSR, DIA, ELL, HYB
-from repro_torch.device import (stable_argsort, to_numpy, to_tensor,
-                                unique_inverse)
+from repro_torch.device import stable_argsort, to_numpy, to_tensor
 from repro_torch.graph.semiring import Semiring, resolve
 
 from .spmv_bell import BN as BELL_BN, spmv_bell
 from .spmv_csr import spmv_csr
-from .spmv_csr_seg import LONG_ROW, spmv_csr_seg
+from .spmv_csr_seg import MAX_WINDOW, WINDOW, spmv_csr_seg
 from .spmv_dia import spmv_dia
 from .spmv_ell import spmv_ell
 
@@ -92,34 +94,66 @@ def spmv_dia_prepared(prep: PreparedDIA, x: torch.Tensor,
 class PreparedBELL:
     """The container's blocks minus those that are all zero at block
     column 0 -- the padding blocks, and any real block equal to one,
-    which add the same 0 * x[0:bn] -- in container order; `pad0[b]` marks
-    the block rows that had one, whose y adds that term (+0, or NaN when
-    the first x tile holds a non-finite value)."""
-    blocks: torch.Tensor      # (nb, bm, bn) f32
+    which add the same 0 * x[0:bn] -- in container order, each
+    compressed to its kept columns: the columns where some row of the
+    block is nonzero (bit n % 32 of `masks[p, n // 32]`), whose values
+    are stored dense, column by column (bm per column, explicit zeros
+    included), from `values[val_ptr[p]]`.  `pad0[b]` marks the block
+    rows that had a dropped block, whose y adds 0 * x[0:bn] (+0, or NaN
+    when the first x tile holds a non-finite value); a dropped column
+    adds the same term of its own tile."""
+    values: torch.Tensor      # (Σ bm * k_p,) f32
+    val_ptr: torch.Tensor     # (nb,) int64
+    masks: torch.Tensor       # (nb, 4) int32, 128 bits per block
     block_cols: torch.Tensor  # (nb,) int32
     block_ptr: torch.Tensor   # (n_block_rows + 1,) int32
     pad0: torch.Tensor        # (n_block_rows,) uint8
     n_rows: int
     n_cols: int
+    bm: int
+    lanes: int                # lanes per row in the kernel's fold
+
+
+def _bell_lanes(bm: int, mean_kept: float) -> int:
+    """Lanes per row for blocks of `mean_kept` kept columns on average:
+    one per 16 columns (rounded up to a power of two), at most 32 // bm.
+    Narrow blocks get one lane a row, so a warp walks several block rows
+    at once."""
+    want = max(1, -(-int(np.ceil(mean_kept)) // 16))
+    return min(32 // bm, 1 << (want - 1).bit_length())
 
 
 def prepare_bell(bell: BELL) -> PreparedBELL:
     if bell.bn != BELL_BN:
         raise ValueError(f"prepare_bell: blocks must be {BELL_BN} wide, "
                          f"got bn={bell.bn}")
-    dropped = (bell.block_cols == 0) & \
-        ~(bell.data != 0).flatten(2).any(dim=2)       # (nbr, bpr)
+    if not 0 < bell.bm <= 32 or 32 % bell.bm:
+        raise ValueError(f"prepare_bell: bm must divide 32 (a warp's "
+                         f"lanes split over the rows), got bm={bell.bm}")
+    nonzero = bell.data != 0                          # (nbr, bpr, bm, bn)
+    dropped = (bell.block_cols == 0) & ~nonzero.flatten(2).any(dim=2)
     keep = ~dropped
     ptr = torch.zeros(bell.data.shape[0] + 1, dtype=torch.int64,
                       device=bell.data.device)
     torch.cumsum(keep.sum(dim=1), 0, out=ptr[1:])
     if int(ptr[-1]) >= np.iinfo(np.int32).max:
         raise ValueError("prepare_bell: too many blocks for int32 offsets")
-    return PreparedBELL(blocks=bell.data[keep].contiguous(),
+    kept = nonzero[keep].any(dim=1)                   # (nb, bn)
+    # column-major inside a block: the kept columns' bm values each
+    values = bell.data[keep].transpose(1, 2)[kept].reshape(-1)
+    per_block = bell.bm * kept.sum(dim=1)
+    val_ptr = torch.cumsum(per_block, 0) - per_block
+    mean_kept = float(kept.sum()) / max(kept.shape[0], 1)
+    words = (kept.reshape(-1, 4, 32).long() << torch.arange(
+        32, device=kept.device)).sum(dim=2)
+    masks = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return PreparedBELL(values=values.contiguous(), val_ptr=val_ptr,
+                        masks=masks.to(torch.int32).contiguous(),
                         block_cols=bell.block_cols[keep].contiguous(),
                         block_ptr=ptr.to(torch.int32),
                         pad0=dropped.any(dim=1).to(torch.uint8),
-                        n_rows=bell.n_rows, n_cols=bell.n_cols)
+                        n_rows=bell.n_rows, n_cols=bell.n_cols, bm=bell.bm,
+                        lanes=_bell_lanes(bell.bm, mean_kept))
 
 
 def spmv_bell_prepared(prep: PreparedBELL, x: torch.Tensor,
@@ -127,8 +161,7 @@ def spmv_bell_prepared(prep: PreparedBELL, x: torch.Tensor,
     if resolve(semiring).name != "plus_times":
         raise ValueError("BELL plans are plus-times only")
     _check_x(x, prep.n_cols)
-    return spmv_bell(prep.blocks, prep.block_cols, prep.block_ptr,
-                     prep.pad0, x, prep.n_rows)
+    return spmv_bell(prep, x)
 
 
 # ---------------------------------------------------------------------------
@@ -224,75 +257,64 @@ def spmv_csr_prepared(prep: PaddedCSR, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Segmented CSR (nnz-balanced flat stream) and HYB
+# Segmented CSR (merge-path windows over a row-major stream) and HYB
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class PreparedSegCSR:
-    """A flat nonzero stream in segments of `seg_len` slots (the last one
-    short, no padding slots); `rid` ranks each slot's row densely within
-    its segment, in ascending row order; `order` lists each segment's
-    slots (as offsets into the segment) sorted by (rank, slot), so the
-    slots of one rank form one run; `merge_ptr`/`merge_idx` list each
-    row's (segment, rank) partials -- index s * rwin + r -- in segment
-    order; `long_rows` lists the rows with more than `LONG_ROW` partials,
-    which the kernel merges with a whole block each."""
-    vals: torch.Tensor       # (nnz,) f32
-    cols: torch.Tensor       # (nnz,) int32
-    rid: torch.Tensor        # (nnz,) int32 rank within the segment
-    order: torch.Tensor      # (nnz,) int16 slot offsets, rank-sorted
-    merge_ptr: torch.Tensor  # (n_rows + 1,) int32
-    merge_idx: torch.Tensor  # (n_partials,) int32
-    long_rows: torch.Tensor  # (n_long,) int32, ascending
+    """A row-major nonzero stream with a row pointer over every row, cut
+    into merge-path windows: the merge path is the sequence of row ends
+    and nonzeros (row r's nonzeros, then its end, at positions
+    row_ptr[r] + r .. row_ptr[r+1] + r), window w holds its items
+    [w * window, (w + 1) * window), and `win_row[w]` counts the rows that
+    end before it (`win_row[-1] == n_rows`).  `split_rows` lists, in
+    ascending order, the rows whose items fall into more than one
+    window; the kernel folds their parts in a second pass."""
+    vals: torch.Tensor        # (nnz,) f32, row-major
+    cols: torch.Tensor        # (nnz,) int32
+    row_ptr: torch.Tensor     # (n_rows + 1,) int32
+    win_row: torch.Tensor     # (n_win + 1,) int32
+    split_rows: torch.Tensor  # (n_split,) int32, ascending
     n_rows: int
     n_cols: int
-    seg_len: int
-    rwin: int                # most distinct rows any segment touches
+    window: int
 
 
-def segment_stream(rows, cols, vals, n_rows: int, n_cols: int,
-                   seg_len: int, device) -> PreparedSegCSR:
-    """Cut a (rows, cols, vals) stream -- in the order the caller chose:
-    row-major for merge-CSR, column-sorted for the HYB heavy part -- into
-    segments, ranking rows within each (the sorts run on `device`)."""
-    if not 0 < seg_len <= 1024:
-        raise ValueError("seg_len must be in 1..1024 (one CUDA block)")
-    rows = np.asarray(rows, dtype=np.int64)
-    nnz = rows.shape[0]
-    n_segs = ceil_div(nnz, seg_len)
-    seg = np.arange(nnz, dtype=np.int64) // seg_len
-    uniq, inv = unique_inverse(seg * max(n_rows, 1) + rows, device)
-    u_seg, u_row = uniq // max(n_rows, 1), uniq % max(n_rows, 1)
-    first = np.searchsorted(u_seg, np.arange(n_segs))
-    u_rank = np.arange(uniq.size, dtype=np.int64) - first[u_seg]
-    rwin = int(u_rank.max()) + 1 if uniq.size else 0
-    if n_segs * rwin >= np.iinfo(np.int32).max:
-        raise ValueError("segment partials exceed int32 indexing")
-    rid = u_rank[inv]
-    # sorting by (segment, rank) moves no slot out of its segment, and the
-    # stable sort keeps slot order inside each rank's run
-    order = stable_argsort(seg * max(rwin, 1) + rid, device) - seg * seg_len
-    by_row = stable_argsort(u_row, device)      # keeps segment order
-    per_row = np.bincount(u_row, minlength=n_rows)
-    merge_ptr = np.zeros(n_rows + 1, dtype=np.int64)
-    np.cumsum(per_row, out=merge_ptr[1:])
+def segment_stream(row_ptr, cols, vals, n_rows: int, n_cols: int,
+                   window: int, device) -> PreparedSegCSR:
+    """Cut a row-major stream, given by its row pointer over every row,
+    into merge-path windows of `window` items."""
+    if not 0 < window <= MAX_WINDOW:
+        raise ValueError(f"the window must be in 1..{MAX_WINDOW} items "
+                         "(the kernel stages one in shared memory)")
+    row_ptr = np.asarray(row_ptr, dtype=np.int64)
+    nnz = int(row_ptr[-1])
+    if nnz >= np.iinfo(np.int32).max:
+        raise ValueError("segment_stream: more nonzeros than int32 "
+                         "row pointers can index")
+    n_items = n_rows + nnz
+    n_win = ceil_div(n_items, window)
+    ends = row_ptr[1:] + np.arange(n_rows)        # a row end's position
+    starts = row_ptr[:-1] + np.arange(n_rows)     # its first item
+    diag = np.minimum(np.arange(n_win + 1, dtype=np.int64) * window,
+                      n_items)
     arrays = dict(
         vals=np.asarray(vals), cols=np.asarray(cols).astype(np.int32),
-        rid=rid.astype(np.int32), order=order.astype(np.int16),
-        merge_ptr=merge_ptr.astype(np.int32),
-        merge_idx=(u_seg * rwin + u_rank)[by_row].astype(np.int32),
-        long_rows=np.flatnonzero(per_row > LONG_ROW).astype(np.int32))
+        row_ptr=row_ptr.astype(np.int32),
+        win_row=np.searchsorted(ends, diag).astype(np.int32),
+        split_rows=np.flatnonzero(starts // window != ends // window)
+        .astype(np.int32))
     return PreparedSegCSR(
         **{k: to_tensor(v, device) for k, v in arrays.items()},
-        n_rows=n_rows, n_cols=n_cols, seg_len=seg_len, rwin=rwin)
+        n_rows=n_rows, n_cols=n_cols, window=window)
 
 
-def prepare_csr_seg(csr: CSR, seg_len: int = 512) -> PreparedSegCSR:
-    """The CSR stream, row-major, cut into equal-nnz segments."""
-    rows = np.repeat(np.arange(csr.n_rows, dtype=np.int64),
-                     csr.row_lengths())
-    return segment_stream(rows, to_numpy(csr.indices), to_numpy(csr.data),
-                          csr.n_rows, csr.n_cols, seg_len, csr.device)
+def prepare_csr_seg(csr: CSR, seg_len: int = WINDOW) -> PreparedSegCSR:
+    """The CSR stream as it is (row-major), in windows of `seg_len`
+    merge-path items."""
+    return segment_stream(to_numpy(csr.indptr), to_numpy(csr.indices),
+                          to_numpy(csr.data), csr.n_rows, csr.n_cols,
+                          seg_len, csr.device)
 
 
 def spmv_csr_seg_prepared(prep: PreparedSegCSR, x: torch.Tensor,
@@ -304,8 +326,8 @@ def spmv_csr_seg_prepared(prep: PreparedSegCSR, x: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class PreparedHYB:
     """The ELL kernel over the light rows, then the segmented kernel over
-    the column-sorted heavy stream, whose merge pass ⊕-joins the light
-    result.  Heavy rows are all padding in the light slab and light rows
+    the heavy stream in row order, which ⊕-joins the light result into
+    every row.  Heavy rows are all padding in the light slab and light rows
     are absent from the heavy stream, so the join is exact."""
     light: PreparedELL
     heavy: PreparedSegCSR
@@ -313,15 +335,22 @@ class PreparedHYB:
     n_cols: int
 
 
-def prepare_hyb(hyb: HYB, seg_len: int = 512,
+def prepare_hyb(hyb: HYB, seg_len: int = WINDOW,
                 semiring=None) -> PreparedHYB:
+    """The light slab for the ELL kernel; the column-sorted heavy stream
+    put in row order by a stable sort (each row keeps the container's
+    column order), with a row pointer over every row."""
     light = prepare_ell(
         ELL(data=hyb.data, indices=hyb.indices, n_rows=hyb.n_rows,
             n_cols=hyb.n_cols, max_nnz=hyb.light_width, fill=hyb.fill),
         semiring)
-    heavy = segment_stream(to_numpy(hyb.hrows), to_numpy(hyb.hcols),
-                           to_numpy(hyb.hvals), hyb.n_rows, hyb.n_cols,
-                           seg_len, hyb.hvals.device)
+    rows = to_numpy(hyb.hrows)
+    order = stable_argsort(rows, hyb.hvals.device)
+    row_ptr = np.zeros(hyb.n_rows + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=hyb.n_rows), out=row_ptr[1:])
+    heavy = segment_stream(row_ptr, to_numpy(hyb.hcols)[order],
+                           to_numpy(hyb.hvals)[order], hyb.n_rows,
+                           hyb.n_cols, seg_len, hyb.hvals.device)
     return PreparedHYB(light=light, heavy=heavy, n_rows=hyb.n_rows,
                        n_cols=hyb.n_cols)
 

@@ -24,6 +24,7 @@ from repro_torch.graph.semiring import resolve
 
 from .flash_attention import flash_attention as _flash_attention
 from .paged_attention import paged_attention as _paged_attention
+from .spmv_csr_seg import WINDOW
 from ._layout import (prepare_bell, prepare_csr, prepare_csr_seg,
                       prepare_dia, prepare_ell, prepare_hyb,
                       spmv_bell_prepared, spmv_csr_prepared,
@@ -90,16 +91,17 @@ def spmv_csr(csr: CSR, x: torch.Tensor, n_stripes: int = 1,
 
 
 @_reordered
-def spmv_csr_seg(csr: CSR, x: torch.Tensor, seg_len: int = 512,
+def spmv_csr_seg(csr: CSR, x: torch.Tensor, seg_len: int = WINDOW,
                  semiring=None) -> torch.Tensor:
-    """nnz-balanced segmented (merge) CSR."""
+    """Merge-path segmented CSR: windows of `seg_len` row ends and
+    nonzeros."""
     sr = resolve(semiring)
     return spmv_csr_seg_prepared(prepare_csr_seg(csr, seg_len=seg_len), x,
                                  sr)
 
 
 @_reordered
-def spmv_hyb(hyb: HYB, x: torch.Tensor, seg_len: int = 512,
+def spmv_hyb(hyb: HYB, x: torch.Tensor, seg_len: int = WINDOW,
              semiring=None) -> torch.Tensor:
     """Hybrid row split: the ELL kernel over the light rows, the
     segmented kernel over the heavy stream, joined by ⊕.  Non-plus-times

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.graph.semiring import Semiring
+from repro_torch.graph.semiring import Semiring, cached_on
 
 from . import _build
 
@@ -28,23 +28,32 @@ def spmv_csr_plain(vals: torch.Tensor, cols: torch.Tensor,
     from `rowptr`, then a segment-⊕ per stripe and an ordered ⊕ over the
     stripes."""
     n_stripes, n_blocks, width = vals.shape
-    bm = rowptr.shape[2] - 1
-    ptr = rowptr.reshape(n_stripes * n_blocks, bm + 1)
-    slot = torch.arange(width, dtype=ptr.dtype, device=ptr.device)
-    rowin = torch.searchsorted(ptr, slot.expand(ptr.shape[0], width)
-                               .contiguous(), right=True) - 1
-    rowin = rowin.reshape(vals.shape)
-    real = rowin < bm                     # slots past a cell's end: padding
-    block = torch.arange(n_blocks, device=vals.device).view(1, -1, 1)
-    stripe = torch.arange(n_stripes, device=vals.device).view(-1, 1, 1)
-    target = stripe * n_rows + block * bm + rowin
+    real, target = cached_on(rowptr, ("cell rows", n_rows, width),
+                             lambda: _cell_rows(rowptr, n_rows, width))
     prods = sr.mul(vals, x[cols.long()])
-    partials = sr.segment(prods[real], target[real],
+    partials = sr.segment(prods[real], target,
                           n_stripes * n_rows).view(n_stripes, n_rows)
     y = partials[0]
     for s in range(1, n_stripes):
         y = sr.add(y, partials[s])
     return y
+
+
+def _cell_rows(rowptr, n_rows, width):
+    """The padded slots of the cell layout (`real`, False past a cell's
+    end) and each real slot's row in the stacked (S * n_rows) partials."""
+    n_stripes, n_blocks, bm = rowptr.shape[0], rowptr.shape[1], \
+        rowptr.shape[2] - 1
+    ptr = rowptr.reshape(n_stripes * n_blocks, bm + 1)
+    slot = torch.arange(width, dtype=ptr.dtype, device=ptr.device)
+    rowin = torch.searchsorted(ptr, slot.expand(ptr.shape[0], width)
+                               .contiguous(), right=True) - 1
+    rowin = rowin.reshape(n_stripes, n_blocks, width)
+    real = rowin < bm                     # slots past a cell's end: padding
+    block = torch.arange(n_blocks, device=ptr.device).view(1, -1, 1)
+    stripe = torch.arange(n_stripes, device=ptr.device).view(-1, 1, 1)
+    target = stripe * n_rows + block * bm + rowin
+    return real, target[real]
 
 
 def spmv_csr(vals: torch.Tensor, cols: torch.Tensor, rowptr: torch.Tensor,
@@ -86,8 +95,8 @@ def spmv_csr_torch(csr, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
     """Container oracle (the reference's `spmv_csr_jnp` /
     `spmv_csr_semiring_jnp`): gather, ⊗, segment-⊕ by row; empty rows
     read the ⊕-identity.  `x` may be a (k, n) batch."""
-    lengths = torch.diff(csr.indptr.long())
-    row_ids = torch.repeat_interleave(
-        torch.arange(csr.n_rows, device=csr.data.device), lengths)
+    row_ids = cached_on(csr.indptr, "row ids", lambda: torch.repeat_interleave(
+        torch.arange(csr.n_rows, device=csr.data.device),
+        torch.diff(csr.indptr.long())))
     prods = sr.mul(csr.data, x[..., csr.indices.long()])
     return sr.segment(prods, row_ids, csr.n_rows)

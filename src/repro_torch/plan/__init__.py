@@ -4,7 +4,7 @@
     p = plan.compile(csr)            # analyze -> format -> layout (card)
     p = plan.compile(csr, reorder="rcm")   # reorder first; x, y unchanged
     y = p.execute(x)                 # one hand-written kernel per SpMV
-    Y = p.execute_many(X)            # batched plain-torch SpMM
+    Y = p.execute_many(X)            # one execute per row of X
 """
 from .cache import DEFAULT_CACHE, PlanCache, get_plan
 from .compiler import (SEMIRING_FORMATS, choose_format, compile, convert,

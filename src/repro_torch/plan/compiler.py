@@ -25,6 +25,7 @@ from repro_torch.core.formats import BELL, CSR, DIA, ELL, HYB
 from repro_torch.device import resolve_device
 from repro_torch.graph.semiring import SEMIRINGS, resolve
 from repro_torch.kernels import _layout as kl
+from repro_torch.kernels.spmv_csr_seg import WINDOW
 
 from .fingerprint import matrix_fingerprint
 from .plan import SpmvPlan
@@ -124,7 +125,7 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
             format: Optional[str] = None,         # noqa: A002
             use_pallas: bool = True,
             semiring: str = "plus_times",
-            bm: int = 128, n_stripes: int = 1, seg_len: int = 512,
+            bm: int = 128, n_stripes: int = 1, seg_len: int = WINDOW,
             keep_csr: bool = True,
             sample_rows: Optional[int] = 65536,
             device=None) -> SpmvPlan:
@@ -145,7 +146,8 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
     semiring    name or `Semiring` of the (⊕, ⊗) pair; non-plus-times
                 plans use the absorbing-pad formats only
     bm / n_stripes / seg_len   padded-CSR row block and column stripes,
-                nonzeros per segment of the 'csr-seg'/'hyb' layouts
+                merge-path items (row ends and nonzeros) per window
+                of the 'csr-seg'/'hyb' layouts
     keep_csr    keep the permuted CSR on the plan
     """
     if mesh is not None or partition is not None:
@@ -222,7 +224,7 @@ def plan_for_container(matrix) -> SpmvPlan:
     names = {DIA: "dia", BELL: "bell", ELL: "ell", CSR: "csr", HYB: "hyb"}
     format_name = names[type(matrix)]
     dev = matrix.data.device
-    prep = _prepare(matrix, format_name, bm=128, n_stripes=1, seg_len=512,
+    prep = _prepare(matrix, format_name, bm=128, n_stripes=1, seg_len=WINDOW,
                     semiring=resolve(None))
     return SpmvPlan(
         fingerprint=matrix_fingerprint(matrix), format_name=format_name,

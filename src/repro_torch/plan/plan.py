@@ -14,10 +14,11 @@ CPU plan.
                        plans run the container's plain PyTorch oracle
                        instead; the option keeps the reference's name so
                        cache keys agree);
-  * `execute_many(X)`  batched multi-vector SpMV (SpMM): the container's
-                       plain PyTorch oracle over a (k, n) batch, as the
-                       reference vmaps its plain jnp kernel -- no
-                       hand-written kernel on this path;
+  * `execute_many(X)`  batched multi-vector SpMV (SpMM): one `execute`
+                       per row of X on a kernel plan (each row equals
+                       `execute` bit for bit); the container's plain
+                       oracle over the whole batch on a
+                       `use_pallas=False` plan;
   * `power_iteration`  repeated `execute` with normalisation.
 
 Sharded plans (ROADMAP A10) and address traces (the telemetry slice)
@@ -121,12 +122,20 @@ class SpmvPlan:
 
     def execute_many(self, X) -> torch.Tensor:
         """Batched SpMV: Y[k] = A (⊕,⊗) X[k] for a (k, n_cols) batch, in
-        the original order (the batch is gathered through `col_perm` and
-        scattered through `inv_row_perm` at once)."""
+        the original order.  A kernel plan runs `execute` once per row
+        of X, in order, so Y[k] equals `execute(X[k])` bit for bit; a
+        `use_pallas=False` plan runs the container's oracle over the
+        whole batch (gathered through `col_perm` and scattered through
+        `inv_row_perm` at once), whose sums are ordered too."""
         X = self._input(X)
         if X.dim() != 2 or X.shape[1] != self.n_cols:
             raise ValueError(f"execute_many expects (k, {self.n_cols}), "
                              f"got {tuple(X.shape)}")
+        if self.use_pallas:
+            X = X.contiguous()
+            if X.shape[0] == 0:
+                return X.new_empty((0, self.n_rows))
+            return torch.stack([self.execute(x) for x in X])
         sr = resolve(self.semiring)
         if self.reordering is None:
             return container_spmv(self.container, X, sr)

@@ -9,6 +9,8 @@ integer-valued operands, within rtol 1e-5 on real ones, and for every
 x -- a padding block adds 0 * x[0:128], NaN where the first tile holds
 a non-finite value.  The CUDA kernel itself runs in `test_torch_gpu.py`.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +26,7 @@ from repro.plan import fingerprint as rfp
 from repro_torch.core import formats as tf
 from repro_torch.kernels import _layout as tkl
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.spmv_bell import spmv_bell_torch
+from repro_torch.kernels.spmv_bell import column_mask, spmv_bell_torch
 from repro_torch.plan import compile as t_compile
 from repro_torch.plan import fingerprint as tfp
 
@@ -156,19 +158,124 @@ def test_non_finite_first_tile_poisons_padded_rows(name, bad):
     assert np.array_equal(got[fin], want[fin])
 
 
-def test_prepared_layout_keeps_only_real_blocks():
+def test_prepared_layout_keeps_real_blocks_and_their_kept_columns():
     """The blocked matrix's padded container is mostly padding; the
-    prepared layout stores the real tiles and flags the padded rows."""
+    prepared layout stores the real blocks, flags the padded rows, and
+    of each block only its kept columns (a 128-bit mask), column by
+    column, at its int64 value offset."""
     c = _case("empty-block-rows")
     bell = tf.BELL.from_csr(port_csr(c))
     prep = tkl.prepare_bell(bell)
-    real = int((bell.data != 0).flatten(2).any(2).sum())
-    assert prep.blocks.shape == (real, 8, 128)
+    nonzero = (bell.data != 0).flatten(2).any(2)
+    real = int(nonzero.sum())
     counts = torch.diff(prep.block_ptr.long())
-    assert int(counts.sum()) == real
+    assert prep.masks.shape == (real, 4) and int(counts.sum()) == real
     assert torch.equal(prep.pad0.bool(), counts < bell.blocks_per_row)
-    assert prep.block_ptr.dtype == torch.int32 and \
-        prep.pad0.dtype == torch.uint8
+    blocks = bell.data[nonzero]                       # (real, 8, 128)
+    kept = column_mask(prep.masks)
+    assert torch.equal(kept, (blocks != 0).any(dim=1))
+    k = kept.sum(dim=1)
+    assert torch.equal(prep.val_ptr, torch.cumsum(8 * k, 0) - 8 * k)
+    for p in range(real):
+        got = prep.values[prep.val_ptr[p]:prep.val_ptr[p] + 8 * k[p]]
+        assert torch.equal(got.reshape(-1, 8), blocks[p][:, kept[p]].t())
+    assert (prep.values.dtype, prep.val_ptr.dtype, prep.masks.dtype,
+            prep.block_ptr.dtype, prep.pad0.dtype) == (
+        torch.float32, torch.int64, torch.int32, torch.int32, torch.uint8)
+
+
+def _transposed_blocked(n=1024, tiles=12, seed=0):
+    """The PageRank operand's shape: dense 8x128 tiles transposed, so a
+    BELL block holds 8 nonzero columns of 128; integer values."""
+    rows, cols, _ = blocked_coo(n, tiles, seed)
+    vals = np.random.default_rng(seed).integers(1, 9, rows.size)
+    return _ref_csr(cols, rows, vals, n, n)
+
+
+def test_transposed_tiles_keep_eight_columns_per_block():
+    c = _transposed_blocked()
+    prep = tkl.prepare_bell(tf.BELL.from_csr(port_csr(c)))
+    k = column_mask(prep.masks).sum(dim=1)
+    assert int(k.min()) >= 1 and int(k.max()) <= 16 and \
+        float(k.float().mean()) < 9
+    dense = prep.masks.shape[0] * 8 * 128 * 4
+    assert prep.values.numel() * 4 < dense / 8
+    # one lane a row: a warp walks four block rows of 8 at once
+    assert prep.lanes == 1
+    assert tkl.prepare_bell(tf.BELL.from_csr(port_csr(_case("blocked")))) \
+        .lanes == 4
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_plain_version_fold_order_per_lane_count(lanes):
+    """The plain version follows the kernel's fold for any lanes per
+    row: integer sums are exact whatever the order, so each count gives
+    the reference's result."""
+    c, ref_bell = _int_bell(_case("overlapping-tiles"), 2)
+    x = np.random.default_rng(5).integers(-8, 9, c.n_cols) \
+        .astype(np.float32)
+    prep = dataclasses.replace(
+        tkl.prepare_bell(tf.BELL.from_csr(port_csr(c))), lanes=lanes)
+    got = tkl.spmv_bell_prepared(prep, torch.from_numpy(x)).numpy()
+    assert np.array_equal(got, _ref_run(ref_bell, x))
+
+
+def _nan_case(where, bad, seed=3):
+    """x with one non-finite entry on the transposed tiles: in a column
+    that some block drops, in a column some block keeps, or in tile 0
+    (the padded block rows' term)."""
+    c = _transposed_blocked(seed=seed)
+    ref_bell = rf.BELL.from_csr(c)
+    prep = tkl.prepare_bell(tf.BELL.from_csr(port_csr(c)))
+    kept = column_mask(prep.masks)
+    cols = prep.block_cols.long()
+    if where == "tile 0":
+        j = 5
+        assert bool(prep.pad0.any())
+    else:
+        want_kept = where == "kept column"
+        p = int(torch.nonzero(cols > 0)[0])
+        n = int(torch.nonzero(kept[p] == want_kept)[0])
+        j = int(cols[p]) * 128 + n
+    x = np.random.default_rng(seed).integers(-8, 9, c.n_cols) \
+        .astype(np.float32)
+    x[j] = bad
+    return ref_bell, c, x
+
+
+@pytest.mark.parametrize("bad", [np.inf, -np.inf, np.nan])
+@pytest.mark.parametrize("where", ["dropped column", "kept column",
+                                   "tile 0"])
+def test_non_finite_x_on_transposed_tiles_matches_reference(where, bad):
+    """The reference multiplies whole 8x128 blocks, so a non-finite x in
+    a dropped column still makes NaN of every row of the blocks over it;
+    in a kept column the stored products (explicit zeros included) do
+    it; in tile 0 the padded block rows get NaN.  The port reads only
+    kept columns and must give the same NaN rows and the same values."""
+    ref_bell, c, x = _nan_case(where, bad)
+    want = _ref_run(ref_bell, x)
+    got = _port_run(c, x)
+    assert np.isnan(want).any()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    fin = ~np.isnan(want)
+    assert np.array_equal(got[fin], want[fin])
+
+
+def test_explicit_zero_in_a_kept_column_is_multiplied():
+    """An explicit zero in a kept column stays stored: 0 * inf is NaN in
+    its row (and in the block's rows with no entry there), while the row
+    whose entry there is nonzero gets inf -- as in the reference's dense
+    block."""
+    r = np.array([0, 1, 1])
+    col = np.array([3, 3, 4])
+    c = _ref_csr(r, col, np.array([0.0, 2.0, 1.0]), 8, 128)
+    x = np.ones(128, np.float32)
+    x[3] = np.inf
+    want = _ref_run(rf.BELL.from_csr(c), x)
+    got = _port_run(c, x)
+    assert np.isnan(want[0]) and np.isnan(got[0])
+    assert want[1] == got[1] == np.inf
+    assert np.isnan(want[2:]).all() and np.isnan(got[2:]).all()
 
 
 @pytest.mark.parametrize("name", ["blocked", "ragged-edges", "nnz0"])

@@ -69,27 +69,62 @@ def test_kernel_matches_plain_version_bit_for_bit(cuda, fmt, sr_name,
     assert sum(launch_counts().values()) >= 1
 
 
+@pytest.mark.parametrize("window", [4, 16])
 @pytest.mark.parametrize("fmt", ["csr-seg", "hyb"])
 @pytest.mark.parametrize("sr_name", SEMIRING_NAMES)
-def test_long_rows_are_merged_by_a_block(cuda, fmt, sr_name):
-    """A hub row cut into more than LONG_ROW partials takes the
-    block-per-row merge and still equals the plain version exactly."""
+def test_hub_rows_spanning_many_windows(cuda, fmt, sr_name, window):
+    """Hub rows cut across many merge-path windows are folded from their
+    carries by the second pass and still equal the plain version
+    exactly; the layout has split rows whose parts span more than 32
+    windows (every lane of the folding warp takes several)."""
     csr, x = port_int_operands("single-dense-row", 300, 11, sr_name)
     sr = SEMIRINGS[sr_name]
-    cpu_prep, run = _layouts(fmt, csr, sr, seg_len=4)
+    cpu_prep, run = _layouts(fmt, csr, sr, seg_len=window)
     heavy = cpu_prep if fmt == "csr-seg" else cpu_prep.heavy
-    assert heavy.long_rows.numel() > 0
-    gpu_prep, _ = _layouts(fmt, csr.to(cuda), sr, seg_len=4)
+    ptr = heavy.row_ptr.long()
+    rows = heavy.split_rows.long()
+    spans = (ptr[rows + 1] + rows) // window - (ptr[rows] + rows) // window
+    assert rows.numel() > 0 and int(spans.max()) > (32 if window == 4
+                                                    else 8)
+    gpu_prep, _ = _layouts(fmt, csr.to(cuda), sr, seg_len=window)
     want = run(cpu_prep, torch.from_numpy(x), sr)
     got = run(gpu_prep, torch.from_numpy(x).to(cuda), sr)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("window", [64, 2048, 4096])
+def test_segmented_kernel_on_rmat_windows(cuda, window):
+    """R-MAT's HYB heavy stream at 2^14 rows under every semiring, with
+    integer values, and with real values within rtol 1e-5; two launches
+    are bit-identical."""
+    from repro_torch.core.generators import rmat_matrix
+
+    for sr_name in SEMIRING_NAMES:
+        sr = SEMIRINGS[sr_name]
+        csr, x = port_int_operands("rmat", 1 << 14, 2, sr_name)
+        prep, run = _layouts("hyb", csr.to(cuda), sr, seg_len=window)
+        xt = torch.from_numpy(x).to(cuda)
+        got = run(prep, xt, sr)
+        plain = run(_layouts("hyb", csr, sr, seg_len=window)[0],
+                    torch.from_numpy(x), sr)
+        assert torch.equal(got.cpu(), plain), sr_name
+    csr = rmat_matrix(1 << 14, device=cuda)
+    sr = SEMIRINGS["plus_times"]
+    prep, run = _layouts("hyb", csr, sr, seg_len=window)
+    x = torch.rand(1 << 14, device=cuda)
+    got = run(prep, x, sr)
+    assert torch.equal(run(prep, x, sr), got)
+    plain = tcompile(csr, format="hyb", use_pallas=False,
+                     device=cuda).execute(x)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("fmt", ["dia", "ell", "csr", "hyb"])
 def test_kernel_real_valued_plus_times_within_tolerance(cuda, fmt):
-    """Real values: summation order may differ from the plain version on
-    the card (its segment sums use atomics), so rtol 1e-5."""
+    """Real values: the kernels' summation order differs from the
+    container oracle's (ordered sums, but in another order), so rtol
+    1e-5."""
     from repro_torch.core.generators import rmat_matrix, fd_matrix
 
     csr = (fd_matrix if fmt == "dia" else rmat_matrix)(4096, device=cuda)
@@ -110,8 +145,8 @@ def test_each_wrapper_counts_only_its_launches(cuda):
     assert launch_counts() == {"spmv_dia": 0, "spmv_ell": 1, "spmv_csr": 0,
                                "spmv_csr_seg": 1, "spmv_bell": 0,
                                "flash_attention": 0, "paged_attention": 0}
-    p.execute_many(torch.ones(2, 256, device=cuda))     # plain SpMM
-    assert sum(launch_counts().values()) == 2
+    p.execute_many(torch.ones(2, 256, device=cuda))     # one per row
+    assert sum(launch_counts().values()) == 6
     assert set(KERNELS) == set(launch_counts())
 
 
@@ -175,21 +210,41 @@ def test_bell_kernel_matches_plain_version_bit_for_bit(cuda, name, kind):
     counted (none for 0 rows)."""
     prep = tkl.prepare_bell(BELL.from_csr(_bell_case(name, cuda)))
     if kind == "real":
-        prep = dataclasses.replace(prep, blocks=torch.rand(
-            prep.blocks.shape, device=cuda) * (prep.blocks != 0))
+        prep = dataclasses.replace(prep, values=torch.rand(
+            prep.values.shape, device=cuda) * (prep.values != 0))
     gen = torch.Generator().manual_seed(1)
     x = (torch.randint(-8, 9, (prep.n_cols,), generator=gen).float()
          if kind == "int" else torch.rand(prep.n_cols, generator=gen))
     x = x.to(cuda)
-    args = (prep.blocks, prep.block_cols, prep.block_ptr, prep.pad0, x,
-            prep.n_rows)
     reset_launch_counts()
-    got = KERNELS["spmv_bell"](*args)
+    got = KERNELS["spmv_bell"](prep, x)
     torch.cuda.synchronize()
     from repro_torch.kernels import spmv_bell_plain
 
-    assert torch.equal(got, spmv_bell_plain(*args))
+    assert torch.equal(got, spmv_bell_plain(prep, x))
     assert launch_counts()["spmv_bell"] == (1 if prep.n_rows else 0)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("name", ["blocked", "overlapping-tiles",
+                                  "ragged-edges"])
+def test_bell_kernel_every_lane_count(cuda, name, lanes):
+    """The kernel with 1, 2 or 4 lanes per row (4, 2 or 1 block rows per
+    warp) against its plain version on real values, bit for bit."""
+    prep = tkl.prepare_bell(BELL.from_csr(_bell_case(name, cuda)))
+    prep = dataclasses.replace(prep, lanes=lanes, values=torch.rand(
+        prep.values.shape, device=cuda) * (prep.values != 0))
+    x = torch.rand(prep.n_cols, device=cuda)
+    from repro_torch.kernels import spmv_bell_plain
+
+    assert torch.equal(KERNELS["spmv_bell"](prep, x),
+                       spmv_bell_plain(prep, x))
+
+
+def _same_nan(got, want):
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and \
+        torch.equal(got[~nan], want[~nan])
 
 
 @pytest.mark.parametrize("bad", [float("inf"), float("nan")])
@@ -207,6 +262,63 @@ def test_bell_kernel_non_finite_first_tile(cuda, name, bad):
     assert torch.isnan(want).any()
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0,
                                equal_nan=True)
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("-inf"), float("nan")])
+@pytest.mark.parametrize("where", ["dropped", "kept", "tile 0"])
+def test_bell_kernel_non_finite_x_on_transposed_tiles(cuda, where, bad):
+    """The PageRank operand's shape (8 kept columns per block): a
+    non-finite x in a column that a block drops, in one it keeps, and in
+    tile 0 (the padded rows' term) gives the plain version's NaN rows
+    and values, and the plain version's NaN rows are those of the CPU."""
+    rows, cols, _ = blocked_coo(2048, 24, 1)
+    vals = np.random.default_rng(1).integers(1, 9, rows.size) \
+        .astype(np.float32)
+    csr = CSR.from_coo(cols, rows, vals, 2048, 2048, device="cpu")
+    cpu = tkl.prepare_bell(BELL.from_csr(csr))
+    gpu = tkl.prepare_bell(BELL.from_csr(csr.to(cuda)))
+    from repro_torch.kernels.spmv_bell import column_mask
+
+    kept = column_mask(cpu.masks)
+    bc = cpu.block_cols.long()
+    x = torch.from_numpy(np.random.default_rng(2).integers(
+        -8, 9, 2048).astype(np.float32))
+    for p in torch.nonzero(bc > 0).flatten()[:5].tolist():
+        if where == "tile 0":
+            assert bool(cpu.pad0.any())
+            x[3] = bad
+            break
+        n = int(torch.nonzero(kept[p] == (where == "kept"))[0])
+        x[int(bc[p]) * 128 + n] = bad
+    want = tkl.spmv_bell_prepared(cpu, x)
+    got = tkl.spmv_bell_prepared(gpu, x.to(cuda))
+    from repro_torch.kernels import spmv_bell_plain
+
+    plain = spmv_bell_plain(gpu, x.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.isnan(want).any()
+    assert _same_nan(got, plain) and _same_nan(got.cpu(), want)
+
+
+def test_execute_many_replays_on_the_card(cuda):
+    """C2: two `execute_many` calls on real-valued X over an R-MAT HYB
+    plan and an FD padded-CSR plan are equal, each row equals `execute`
+    of that row, and the kernel plans launch their kernels once per row;
+    the `use_pallas=False` plans (ordered sums) replay bit for bit too."""
+    from repro_torch.core.generators import fd_matrix, rmat_matrix
+
+    X = torch.rand(4, 1 << 14, device=cuda) * 2 - 1
+    for gen, fmt, kern in ((rmat_matrix, "hyb", "spmv_csr_seg"),
+                           (fd_matrix, "csr", "spmv_csr")):
+        m = gen(1 << 14, device=cuda)
+        for use_pallas in (True, False):
+            p = tcompile(m, format=fmt, use_pallas=use_pallas, device=cuda)
+            reset_launch_counts()
+            Y = p.execute_many(X)
+            assert launch_counts()[kern] == (4 if use_pallas else 0)
+            assert torch.equal(p.execute_many(X), Y)
+            for k in range(4):
+                assert torch.equal(p.execute(X[k]), Y[k])
 
 
 def test_bell_and_reordered_plans_on_the_card(cuda):

@@ -91,6 +91,96 @@ def test_execute_many_matches_reference_and_execute(sr_name, family):
         tp.execute_many(X[0])
 
 
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("family,fmt,reorder", [
+    ("rmat", None, "none"), ("fd", "csr", "none"), ("rmat", "csr-seg",
+                                                   "none"),
+    ("fd", "csr", "rcm"), ("rmat", "bell", "none")])
+def test_execute_many_rows_equal_execute(family, fmt, reorder, use_pallas):
+    """Real-valued X: every row of `execute_many` equals `execute` of
+    that row bit for bit, and a second call equals the first -- on the
+    kernel path (one execute per row) and on the oracle path (ordered
+    sums)."""
+    m = (tg.rmat_matrix if family == "rmat" else tg.fd_matrix)(
+        256, device="cpu")
+    p = tplan.compile(m, format=fmt, reorder=reorder,
+                      use_pallas=use_pallas, device="cpu")
+    X = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (4, 256)).astype(np.float32))
+    Y = p.execute_many(X)
+    assert Y.shape == (4, 256) and torch.equal(p.execute_many(X), Y)
+    for k in range(4):
+        assert torch.equal(p.execute(X[k]), Y[k])
+    assert p.execute_many(X[:0]).shape == (0, 256)
+
+
+@pytest.mark.parametrize("shape", [(1000,), (3, 1000)])
+def test_ordered_sum_is_a_segment_sum_in_a_fixed_order(shape):
+    """`Semiring.segment` under plus-times: the scatter sum on integers,
+    within rounding on reals, the same for a vector alone and as a batch
+    row, empty segments +0."""
+    from repro_torch.graph.semiring import PLUS_TIMES, ordered_sum
+
+    rng = np.random.default_rng(4)
+    idx = torch.from_numpy(rng.integers(0, 80, 1000))
+    idx[idx == 9] = 10
+    ints = torch.from_numpy(rng.integers(-8, 9, shape).astype(np.float32))
+    want = torch.zeros(shape[:-1] + (90,)).scatter_add(
+        -1, idx.expand(shape), ints)
+    got = PLUS_TIMES.segment(ints, idx, 90)
+    assert torch.equal(got, want) and bool((got[..., 9] == 0).all())
+    real = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    got = ordered_sum(real, idx, 90)
+    torch.testing.assert_close(got, torch.zeros(shape[:-1] + (90,))
+                               .scatter_add(-1, idx.expand(shape), real),
+                               rtol=1e-5, atol=1e-5)
+    if len(shape) == 2:
+        for k in range(shape[0]):
+            assert torch.equal(ordered_sum(real[k], idx, 90), got[k])
+
+
+def test_segment_runs_are_built_once_per_index():
+    """The run table is kept for the index tensor that made it, rebuilt
+    when the index changes in place (with the sums that follow), and
+    dropped with the index."""
+    import gc
+
+    from repro_torch.graph import semiring as tsr
+
+    rng = np.random.default_rng(5)
+    idx = torch.from_numpy(rng.integers(0, 50, 400))
+    ints = torch.from_numpy(rng.integers(-8, 9, 400).astype(np.float32))
+    runs = tsr.segment_runs(idx, 60)
+    assert tsr.segment_runs(idx, 60) is runs
+    assert tsr.segment_runs(idx, 61) is not runs
+    assert sum(g.numel() for _, g in runs) < 2 * 400
+    idx[:100] = 55
+    assert tsr.segment_runs(idx, 60) is not runs
+    want = torch.zeros(60).scatter_add(0, idx, ints)
+    assert torch.equal(tsr.ordered_sum(ints, idx, 60), want)
+    n = len(tsr._CACHE)
+    del idx, runs
+    gc.collect()
+    assert len(tsr._CACHE) == n - 2
+
+
+@pytest.mark.parametrize("family,fmt", [("fd", "csr"), ("rmat", "hyb")])
+def test_oracle_plan_repeats_its_sums_from_the_kept_runs(family, fmt):
+    """A `use_pallas=False` plan keeps one run table for its container,
+    and every call after the first sums through it to the same bits."""
+    from repro_torch.graph import semiring as tsr
+
+    m = (tg.rmat_matrix if family == "rmat" else tg.fd_matrix)(
+        256, device="cpu")
+    p = tplan.compile(m, format=fmt, use_pallas=False, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(6).uniform(
+        -1, 1, 256).astype(np.float32))
+    y = p.execute(x)
+    n = len(tsr._CACHE)
+    assert all(torch.equal(p.execute(x), y) for _ in range(3))
+    assert len(tsr._CACHE) == n
+
+
 def test_power_iteration_matches_reference():
     ref = rg.fd_matrix(256, seed=1)
     x0 = np.random.default_rng(0).uniform(0.5, 1.5, 256).astype(np.float32)
