@@ -10,8 +10,12 @@ kernels/csrc/` and then runs these phases, one output line per step:
            the kernels' build time, and the flash library's SASS per
            kernel (`cuobjdump -sass`: HGMMA, HMMA and FFMA counts, with
            registers and local memory from `--dump-resource-usage`):
-           the run fails unless every bfloat16 instance runs on the
-           tensor cores (HGMMA or HMMA);
+           the run fails unless every bfloat16 and float32 instance runs
+           on the tensor cores (HGMMA or HMMA); and the paged kernels the
+           attention phase runs (split walk bf16 and f32 at hd 128 with 4
+           query heads a KV head, and the merge): registers, local
+           memory, LDG / LDGSTS counts and the LDG issued before their
+           first use;
   small    FD and R-MAT at 2^10 on the card against the port's CPU path,
            which also loads every library before anything is timed;
   attention the attention entry points of `kernels.ops` at Granite-8B's
@@ -36,10 +40,11 @@ kernels/csrc/` and then runs these phases, one output line per step:
            PyTorch call) and the bound: the larger of the bytes (q, k,
            v and out once; paged: the K and V rows below each length)
            at 3.35 TB/s and the visible (q, k) pairs x 4 head_dim flops
-           at the peak for the inputs' type (989 TFLOP/s bfloat16, 67
-           TFLOP/s float32), with `fma_bound_ms` at the float32 FMA
-           units' 67 TFLOP/s and `tc_bound_ms` at the tensor cores'
-           (989 TFLOP/s bfloat16, 495 TF32 for float32) beside it, and
+           at the peak for the inputs' type (989 TFLOP/s bfloat16; for
+           float32 the better of the FMA units' 67 TFLOP/s and three
+           TF32 products on the tensor cores, 3 x flops at 495 TFLOP/s,
+           printed as `tc3_bound_ms`), with `fma_bound_ms` and
+           `tc_bound_ms` (one pass on the tensor cores) beside it, and
            each flash cell's achieved TFLOP/s (those flops over
            kernel_ms);
   main     the main path at 2^22 rows: `fd_matrix` and `rmat_matrix`,
@@ -87,7 +92,10 @@ kernels/csrc/` and then runs these phases, one output line per step:
            columns and their masks and offsets.  The uniform 8 nnz + 12
            n bytes of the unpadded CSR is printed beside it as
            `csr_bound_ms`.  DIA is timed on the reordered 2^22 band (and
-           on FD 2^16), BELL on the blocked PageRank layout (and on the
+           on FD 2^16; each also from a torch.profiler trace, the
+           kernel's and torch.sparse's device time alone, since at 2^16
+           the events time the host's dispatch as much as the kernel),
+           BELL on the blocked PageRank layout (and on the
            per-call layout of the dense tiles), with the padded
            container's bytes beside it as `padded_bound_ms`.
 
@@ -138,6 +146,10 @@ TPU_KERNELS = {
 N_HEADS, N_KV_HEADS, HEAD_DIM = 32, 8, 128
 ATTN_WINDOW = 1024                  # the smoke's own: no config sets one
 PAGED_BLOCK, PAGED_MAX_BLOCKS = 16, 256
+# the paged kernel instances the attention phase runs (GQA 32/8: 4 query
+# heads a KV head), and the merge
+PAGED_INSTANCES = ("bf16 d128 g4", "f32 d128 g4", "merge_kernel bf16",
+                   "merge_kernel f32")
 ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5   # float32 kernel vs plain / oracle
 ORACLE_BF16_TOL = 5e-2              # bfloat16 vs the float32-math oracle
 TILES_PER_1024 = 12                 # dense 8x128 tiles of the blocked graph
@@ -556,14 +568,15 @@ def paged_tables(n_seqs, max_len, seed, serve):
     return cfg, al, lengths.astype(np.int32), tables
 
 
-SASS_OPS = ("HGMMA", "HMMA", "FFMA")
+SASS_OPS = ("HGMMA", "HMMA", "FFMA", "LDG", "LDGSTS")
 
 
-def flash_sass(_build) -> None:
-    """Log each flash kernel's HGMMA / HMMA / FFMA instruction counts and
-    its registers and local memory; fail unless every bfloat16 instance
-    issues tensor-core instructions."""
-    lib = str(_build.library_path("flash_attention"))
+def sass(lib: str):
+    """Every function of the library `lib` as the card's compiler left it:
+    ({mangled name: [(opcode, operands), ...]} from `cuobjdump -sass`,
+    {mangled name: "REG:n LOCAL:n"} from `--dump-resource-usage`)."""
+    from repro_torch.kernels import _build
+
     tool = str(Path(_build.nvcc()).parent / "cuobjdump")
 
     def dump(flag):
@@ -573,35 +586,112 @@ def flash_sass(_build) -> None:
               f"{out.stderr.strip()[-300:]}")
         return out.stdout
 
-    def name(mangled):
-        m = re.search(r"flash_(\w+?)_kernelILi(\d+)E", mangled)
-        return f"{m.group(1)} d{m.group(2)}" if m else mangled
-
-    counts, fn = {}, None
+    code, fn = {}, None
     for line in dump("-sass").splitlines():
         if "Function :" in line:
-            fn = name(line.split("Function :")[1].strip())
-            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            fn = line.split("Function :")[1].strip()
+            code[fn] = []
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
-                      line)
-        if fn is not None and m and m.group(1) in SASS_OPS:
-            counts[fn][m.group(1)] += 1
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z0-9_.]+)([^;]*);", line)
+        if fn is not None and m:
+            code[fn].append((m.group(1), m.group(2).strip()))
     usage, fn = {}, None
     for line in dump("--dump-resource-usage").splitlines():
         if line.strip().startswith("Function "):
-            fn = name(line.strip()[len("Function "):].rstrip(":"))
+            fn = line.strip()[len("Function "):].rstrip(":")
         elif fn is not None and "REG:" in line:
             usage[fn] = " ".join(w for w in line.split()
                                  if w.split(":")[0] in ("REG", "LOCAL"))
+    return code, usage
+
+
+def op_counts(instrs) -> dict:
+    counts = dict.fromkeys(SASS_OPS, 0)
+    for op, _ in instrs:
+        if op.split(".")[0] in counts:
+            counts[op.split(".")[0]] += 1
+    return counts
+
+
+def load_batches(instrs) -> list:
+    """Global loads issued before their first use, in program order: the
+    length of each run of LDG instructions issued before an instruction
+    reads a register one of them writes (a static count of the loads in
+    flight when the first of them is needed)."""
+    pending, batches, n = set(), [], 0
+    for op, args in instrs:
+        base = op.split(".")[0]
+        ops = [a.strip() for a in args.split(",")] if args else []
+        dest = (bool(ops) and re.fullmatch(r"R\d+", ops[0]) is not None
+                and not base.startswith(("ST", "RED", "ATOM")))
+        srcs = set()
+        for r, wide in re.findall(r"\bR(\d+)(\.64)?",
+                                  ",".join(ops[1:] if dest else ops)):
+            srcs |= {int(r), int(r) + 1} if wide else {int(r)}
+        if pending & srcs:
+            batches.append(n)
+            pending, n = set(), 0
+        if base == "LDG" and dest:
+            width = 4 if ".128" in op else 2 if ".64" in op else 1
+            pending |= {int(ops[0][1:]) + i for i in range(width)}
+            n += 1
+    return batches
+
+
+def flash_sass(_build) -> None:
+    """Log each flash kernel's HGMMA / HMMA / FFMA instruction counts and
+    its registers and local memory; fail unless every bfloat16 and every
+    float32 instance issues tensor-core instructions."""
+    def name(mangled):
+        m = re.search(r"flash_(\w+?)_kernelILi(\d+)E", mangled)
+        m2 = re.search(r"flash_(\w+?)_kernel", mangled)
+        return (f"{m.group(1)} d{m.group(2)}" if m
+                else m2.group(1) if m2 else mangled)
+
+    code, usage = sass(str(_build.library_path("flash_attention")))
+    counts = {name(fn): op_counts(ins) for fn, ins in code.items()}
+    usage = {name(fn): u for fn, u in usage.items()}
     for fn, c in sorted(counts.items()):
         log(f"device flash SASS {fn}: " + " ".join(
-            f"{op}={c[op]}" for op in SASS_OPS) + f" {usage.get(fn, '')}")
-    bf16 = [fn for fn in counts if fn.startswith("bf16")]
-    check(len(bf16) == 2 and all(counts[fn]["HGMMA"] + counts[fn]["HMMA"]
-                                 for fn in bf16),
-          f"flash bfloat16 instances {bf16} do not all run on the tensor "
-          "cores (no HGMMA or HMMA)")
+            f"{op}={c[op]}" for op in SASS_OPS[:3]) + f" {usage.get(fn, '')}")
+    for kind in ("bf16", "f32"):
+        inst = [fn for fn in counts if fn.startswith(kind + " ")]
+        check(len(inst) == 2 and all(counts[fn]["HGMMA"] + counts[fn]["HMMA"]
+                                     for fn in inst),
+              f"flash {kind} instances {inst} do not all run on the tensor "
+              "cores (no HGMMA or HMMA)")
+
+
+def paged_name(mangled: str) -> str:
+    m = re.search(r"(paged_\w*?kernel)I(13__nv_bfloat16|f)"
+                  r"(?:Li(\d+)ELi(\d+)E)?", mangled)
+    if not m:
+        return mangled
+    dt = "bf16" if m.group(2) != "f" else "f32"
+    return m.group(1) + f" {dt}" + (f" d{m.group(3)} g{m.group(4)}"
+                                    if m.group(3) else "")
+
+
+def paged_sass(lib: str, label: str, instances, dump=None) -> None:
+    """Log the paged kernels' registers and local memory, their global
+    loads (LDG, and LDGSTS = cp.async) and how many LDG issue before the
+    first use of one (`load_batches`), for the named instances; with
+    `dump` (a directory), write each one's SASS there as well."""
+    code, usage = sass(lib)
+    for fn, ins in sorted(code.items()):
+        short = paged_name(fn)
+        if not any(short.endswith(i) for i in instances):
+            continue
+        if dump is not None:
+            Path(dump).mkdir(parents=True, exist_ok=True)
+            (Path(dump) / f"{label} {short}.sass".replace(" ", "_")) \
+                .write_text("".join(f"{op} {a}\n" for op, a in ins))
+        c, batches = op_counts(ins), load_batches(ins)
+        log(f"device paged SASS {label} {short}: LDG={c['LDG']} "
+            f"LDGSTS={c['LDGSTS']} FFMA={c['FFMA']} {usage.get(fn, '')}; "
+            f"LDG issued before first use, in order: {batches} "
+            f"(max {max(batches, default=0)})")
 
 
 def run_attention(args, dev, K):
@@ -729,20 +819,23 @@ def run_attention(args, dev, K):
 
     def entry(key, kern, plain, lib, need_bytes, flops, dtype, label):
         # operations at the card's peak for the inputs' type: bfloat16 on
-        # the tensor cores, float32 outside them; the float32 FMA units'
-        # figure (what the float32 flash kernel runs on) and the TF32
-        # tensor cores' (float32 inputs) are printed beside it
+        # the tensor cores; float32 at the better of the FMA units and
+        # three TF32 products on the tensor cores (`tc3_bound_ms`, what
+        # float32 accuracy costs there); the FMA units' and one pass of
+        # the tensor cores' figures are printed beside it
         f32 = dtype == torch.float32
         bytes_ms = 1e3 * need_bytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * flops / (F32_OPS_PER_S if f32 else BF16_TC_OPS_PER_S)
-        bound = max(bytes_ms, ops_ms)
         fma = 1e3 * flops / F32_OPS_PER_S
         tc = 1e3 * flops / (TF32_TC_OPS_PER_S if f32 else BF16_TC_OPS_PER_S)
+        tc3 = 3 * tc if f32 else None
+        ops_ms = min(fma, tc3) if f32 else tc
+        bound = max(bytes_ms, ops_ms)
         ms = time_ms(kern, reps, dev)
         plain_ms = time_ms(plain, 3, dev)
         lib_ms = time_ms(lib, reps, dev) if lib is not None else None
         times[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound, fma_bound_ms=fma, tc_bound_ms=tc,
+                          tc3_bound_ms=tc3,
                           bound_by="bytes" if bytes_ms >= ops_ms
                           else "operations")
         rate = (f" tflops={flops / ms / 1e9:.1f}"
@@ -753,7 +846,8 @@ def run_attention(args, dev, K):
             f"{need_bytes} flops={flops} bound_ms={bound:.4f} "
             f"({ms / bound:.2f}x bound, by "
             f"{times[key]['bound_by']}) fma_bound_ms={fma:.4f} "
-            f"tc_bound_ms={tc:.4f}")
+            f"tc_bound_ms={tc:.4f}"
+            + (f" tc3_bound_ms={tc3:.4f}" if f32 else ""))
 
     for name, seq, dt, c, w in flash_cases:
         q, k, v = inputs[name]
@@ -791,6 +885,26 @@ def run_attention(args, dev, K):
               qq.dtype,
               f"{name}, {len(lengths)} sequences, GQA "
               f"{N_HEADS}/{N_KV_HEADS}, block {PAGED_BLOCK}")
+    # each CUDA kernel of a call, its device time from a trace: float32
+    # flash's split passes and 3xTF32 kernel, paged's walk and merge
+    seq = flash_cases[3][1]
+    f32_qkv = [t.reshape(b * N_HEADS, seq, HEAD_DIM)
+               for t in inputs["causal f32"]]
+    for key, fn, names in (
+            ("flash_attention causal f32",
+             lambda: K.flash_attention(*f32_qkv, True, None),
+             ("flash_split_k_kernel", "flash_split_vt_kernel",
+              "flash_f32_kernel")),
+            ("paged_attention", lambda: K.paged_attention(
+                q_dec, k_pool, v_pool, tables_t, lengths_t),
+             ("paged_split_kernel", "paged_merge_kernel")),
+            ("paged_attention f32", lambda: K.paged_attention(
+                *paged_f32, tables_t, lengths_t),
+             ("paged_split_kernel", "paged_merge_kernel"))):
+        traced = trace_ms(fn, reps, dev, names)
+        log(f"time {key} traced: " + " ".join(
+            f"{n}=" + ("not measured" if t is None else f"{t:.4f}")
+            for n, t in traced.items()))
     return counts, errs, times
 
 
@@ -992,12 +1106,16 @@ def time_ms(fn, reps: int, dev) -> float:
     return start.elapsed_time(end) / reps
 
 
-def trace_ms(fn, reps: int, dev, kernels) -> dict:
+def trace_ms(fn, reps: int, dev, kernels=None) -> dict:
     """Device time of each named CUDA kernel per `fn()` call, from a
     torch.profiler trace of `reps` calls: {name: ms, or None when the
-    trace holds no device time for it (and on the CPU)}."""
+    trace holds no device time for it (and on the CPU)}.  kernels=None
+    gives {"all": ms}, every kernel's summed.  A kernel the trace holds
+    fewer than `reps` launches of (the profiler drops records) counts as
+    one launch a call at its mean over the launches recorded."""
+    names = ["all"] if kernels is None else list(kernels)
     if dev.type != "cuda":
-        return dict.fromkeys(kernels)
+        return dict.fromkeys(names)
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1006,14 +1124,17 @@ def trace_ms(fn, reps: int, dev, kernels) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = dict.fromkeys(kernels, 0.0)
+    us = dict.fromkeys(names, 0.0)
     for ev in prof.key_averages():
-        for name in kernels:
-            if name in ev.key:
-                us[name] += getattr(ev, "device_time_total",
-                                    getattr(ev, "cuda_time_total", 0.0))
-    return {name: (t / 1e3 / reps if t > 0 else None)
-            for name, t in us.items()}
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t <= 0 or not ev.count:       # host-side ops hold no device time
+            continue
+        per_call = t / (reps if ev.count >= reps else ev.count)
+        for name in names:
+            if kernels is None or name in ev.key:
+                us[name] += per_call
+    return {name: (t / 1e3 if t > 0 else None) for name, t in us.items()}
 
 
 def sparse_csr(rows, cols, vals, n_rows, n_cols):
@@ -1068,13 +1189,24 @@ def timings(K, SR, plans, dev, reps, adjacency=None):
         x = torch.rand(p.n_cols, generator=gen).to(dev)
         A = sparse_csr(*_coo(c), c.n_rows, c.n_cols)
         D = p.band.shape[0]
+        dkey = "spmv_dia" if "spmv_dia" not in out else f"spmv_dia {label}"
         entry("spmv_dia",
               lambda: K.spmv_dia(p.band, p.offsets, x, p.n_cols),
               lambda: K.spmv_dia_plain(p.band, p.offsets, x, p.n_cols),
               lambda: A @ x, layout_bytes(p.band, p.offsets) + 4 * p.n_cols
               + 4 * p.n_rows, 2 * D * p.n_rows, c.nnz, c.n_rows,
               (p.band, p.offsets), f"{label}, plus_times, {D} diagonals",
-              "spmv_dia" if "spmv_dia" not in out else f"spmv_dia {label}")
+              dkey)
+        # the device time alone, from a trace: at FD 2^16 the events
+        # above measure the host's dispatch as much as the kernel
+        kt = trace_ms(lambda: K.spmv_dia(p.band, p.offsets, x, p.n_cols),
+                      reps, dev, ["spmv_dia_kernel"])["spmv_dia_kernel"]
+        lt = trace_ms(lambda: A @ x, reps, dev)["all"]
+        out[dkey].update(traced_ms=kt, library_traced_ms=lt)
+        log(f"time spmv_dia [{label}] traced: kernel_ms="
+            + ("not measured" if kt is None else f"{kt:.4f}")
+            + " library_ms (torch.sparse's kernels)="
+            + ("not measured" if lt is None else f"{lt:.4f}"))
 
     # BELL: each real block's kept columns (4 bm k bytes), its mask, value
     # offset and block column, the block row pointers and pad flags, x, y;
@@ -1263,6 +1395,8 @@ def main(argv=None) -> int:
             f"kind={torch.cuda.get_device_name(0)} "
             f"count={torch.cuda.device_count()} nvcc_build_s={build_s:.2f}")
         flash_sass(_build)
+        paged_sass(str(_build.library_path("paged_attention")), "split walk",
+                   PAGED_INSTANCES)
         # one launch of each kernel on a tiny matrix; with the small phase
         # below (every driver, so every PyTorch kernel and library the
         # steppers use), this keeps one-time loading out of the main

@@ -7,10 +7,11 @@ per (batch·head), softmax(q kᵀ / √d) v on the reference's block grid
 (bq, bk) = (min(bq, sq), min(bk, skv)): a kv block out of the (causal,
 window) band is skipped for the whole q block, masked pairs inside a
 relevant block carry the -1e30 sentinel, and the online softmax runs in
-float32.  So a row whose relevant blocks hold no visible key comes out as
-the mean of v over those blocks (exp(-1e30 - -1e30) = 1), and a row with
-no relevant block at all comes out 0 -- the kernel's behaviour, which the
-oracle `ref.mha_ref` (zero for every fully masked row) does not share.
+float32 (the kernel) or float64 (the plain version).  So a row whose
+relevant blocks hold no visible key comes out as the mean of v over those
+blocks (exp(-1e30 - -1e30) = 1), and a row with no relevant block at all
+comes out 0 -- the kernel's behaviour, which the oracle `ref.mha_ref`
+(zero for every fully masked row) does not share.
 """
 from __future__ import annotations
 
@@ -48,16 +49,21 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int | None = None,
                           bq: int = 128, bk: int = 128) -> torch.Tensor:
     """Plain PyTorch version: the reference kernel's block walk, one kv
-    block at a time for every relevant q block at once."""
+    block at a time for every relevant q block at once, in float64 and
+    rounded once to q's dtype.  (Float32 products summed in order, as a
+    float32 matmul does, leave a peaked softmax's output about rtol 1e-4
+    from the function's value; float64 keeps the oracle well inside the
+    kernels' float32 check.)"""
     _check(q, k, v)
     bh, sq, d = q.shape
     skv = k.shape[1]
     bq, bk = _block_grid(sq, skv, bq, bk)
     scale = 1.0 / (d ** 0.5)
-    qf, kf, vf = q.float(), k.float(), v.float()
-    m = torch.full((bh, sq, 1), NEG_INF, device=q.device)
-    l = torch.zeros((bh, sq, 1), device=q.device)
-    acc = torch.zeros((bh, sq, d), device=q.device)
+    qf, kf, vf = q.double(), k.double(), v.double()
+    f64 = dict(dtype=torch.float64, device=q.device)
+    m = torch.full((bh, sq, 1), NEG_INF, **f64)
+    l = torch.zeros((bh, sq, 1), **f64)
+    acc = torch.zeros((bh, sq, d), **f64)
     q_lo = torch.arange(0, sq, bq, device=q.device)
     for k_lo in range(0, skv, bk):
         rel = torch.ones_like(q_lo, dtype=torch.bool)
@@ -100,8 +106,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     `window`: sliding-window size (None = full attention); float32
     accumulation.  CUDA tensors launch the kernel (float32 or bfloat16,
-    d in (64, 128), contiguous and 16-byte aligned, else ValueError);
-    CPU tensors run the plain version."""
+    d in (64, 128), contiguous and 16-byte aligned, else ValueError):
+    bfloat16 runs one CUDA kernel, float32 three (K and V split into tf32
+    hi and lo, then the 3xTF32 kernel, in a workspace of 4 bh·skv·d
+    floats).  CPU tensors run the plain version."""
     _check(q, k, v)
     bh, sq, d = q.shape
     skv = k.shape[1]
@@ -123,15 +131,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # a window beyond the sequences masks nothing more (or everything):
     # clamping keeps it in a C int without changing a single pair
     w = 0 if window is None else max(min(int(window), sq + 1), -(skv + 1))
+    # float32 runs on the tensor cores from K and Vᵀ split into tf32 hi and
+    # lo: K hi, K lo (bh, skv, d) and Vᵀ hi, Vᵀ lo (bh, d, skv rounded up
+    # to 8), written by the launch's split passes
+    n_ws = 2 * bh * d * (skv + -(-skv // 8) * 8) \
+        if q.dtype == torch.float32 else 0
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     fn = _build.function(
         "flash_attention", "flash_attention_fwd",
         [_build.PTR] * 4 + [_build.INT] * 9 + [_build.FLOAT, _build.INT,
+                                               _build.PTR, _build.INT64,
                                                _build.PTR])
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 bh, sq, skv, d, fq, fk, int(causal), int(window is not None),
                 w, 1.0 / (d ** 0.5), KERNEL_DTYPES[q.dtype],
-                _build.stream_of(q))
+                ws.data_ptr() if n_ws else None, n_ws, _build.stream_of(q))
     _build.check(rc, "flash_attention", "flash_attention launch")
     flash_attention.launches += 1
     return out

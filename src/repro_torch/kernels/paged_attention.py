@@ -22,6 +22,8 @@ block of the pool makes that sequence's output NaN.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import _build
@@ -30,6 +32,18 @@ NEG_INF = -1e30                    # the reference kernel's sentinel
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_MAX_GROUP = 16              # query heads per KV head
+CHUNK = 32                         # tokens a kernel chunk holds (csrc CH)
+SPAN_TARGET = 512                  # tokens a CTA of the kernel walks, about
+
+
+def split_plan(block: int, max_blocks: int) -> tuple[int, int]:
+    """(span, n_split) of the kernel's split walk, from the shapes alone:
+    a sequence's positions [0, max_blocks·block) are cut into n_split
+    spans of `span` tokens, the largest multiple of lcm(block, CHUNK) up
+    to SPAN_TARGET (at least one such multiple)."""
+    unit = block * CHUNK // math.gcd(block, CHUNK)
+    span = unit * max(1, SPAN_TARGET // unit)
+    return span, -(-max_blocks * block // span)
 
 
 def _check(q, k_pool, v_pool, tables, lengths):
@@ -103,8 +117,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     KVH, hd) through tables (B, max_blocks) and lengths (B,) -> (B, H,
     hd).  CUDA tensors launch the kernel (float32 or bfloat16, hd in
     (32, 64, 128), H // KVH <= 16, int32 tables and lengths, contiguous
-    and 16-byte aligned, else ValueError); CPU tensors run the plain
-    version."""
+    and 16-byte aligned, else ValueError): two CUDA kernels a call, the
+    split walk over `split_plan`'s spans, which writes each span's
+    partial softmax to a workspace of B·H·n_split·(hd + 2) + B·KVH·n_split
+    4-byte words, and the merge of the spans in split order.  CPU tensors
+    run the plain version."""
     _check(q, k_pool, v_pool, tables, lengths)
     if not _build.on_cuda(q, k_pool, v_pool, tables, lengths):
         return paged_attention_plain(q, k_pool, v_pool, tables, lengths)
@@ -128,16 +145,20 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    max_blocks = tables.shape[1]
+    span, n_split = split_plan(block, max_blocks)
+    ws = torch.empty(bsz * n_split * (h * (hd + 2) + kvh),
+                     dtype=torch.float32, device=q.device)
     fn = _build.function(
         "paged_attention", "paged_attention_fwd",
-        [_build.PTR] * 6 + [_build.INT] * 7 + [_build.FLOAT, _build.INT,
-                                               _build.PTR])
+        [_build.PTR] * 6 + [_build.INT] * 9 + [_build.FLOAT, _build.INT,
+                                               _build.PTR, _build.PTR])
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                bsz, h, kvh, hd, n_blocks, block, tables.shape[1],
+                bsz, h, kvh, hd, n_blocks, block, max_blocks, span, n_split,
                 1.0 / (hd ** 0.5), KERNEL_DTYPES[q.dtype],
-                _build.stream_of(q))
+                ws.data_ptr() if ws.numel() else None, _build.stream_of(q))
     _build.check(rc, "paged_attention", "paged_attention launch")
     paged_attention.launches += 1
     return out

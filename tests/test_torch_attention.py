@@ -19,9 +19,12 @@ from _torch_parity import within_bf16_ulp
 
 from repro.kernels import ops as jops, ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.paged_attention import paged_attention_pallas
 from repro.serve import kv_blocks as jkv
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
-                                 ops, paged_attention, ref)
+                                 ops, paged_attention, paged_attention_plain,
+                                 ref)
+from repro_torch.kernels.paged_attention import CHUNK, split_plan
 from repro_torch.serve import kv_blocks as tkv
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -161,6 +164,80 @@ def test_flash_bf16_kernel_needs_the_lo_term_of_p():
     assert within_bf16_ulp(_bf16_kernel_rounding(q, k, v, split=True), want)
     assert not within_bf16_ulp(_bf16_kernel_rounding(q, k, v, split=False),
                                want)
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to the nearest of the 10
+    stored mantissa bits, ties away from zero."""
+    u = x.float().contiguous().view(torch.int32).long()
+    return ((u + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
+
+
+def _split3(a, b, terms):
+    """a @ b as the float32 kernel's tensor cores take it: 3xTF32 (lo·hi +
+    hi·lo, then hi·hi, each summed in float32) or, with terms=1, hi·hi
+    alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _f32_kernel_rounding(q, k, v, terms, bk):
+    """The float32 CUDA kernel's arithmetic, causal, in plain torch: the
+    online softmax over bk-key tiles in float32, S = Q Kᵀ and P V each on
+    the tensor cores' tf32 operands (`_split3`), P split from the float32
+    p, l summed from the float32 p, the scale on the float32 scores."""
+    bh, sq, d = q.shape
+    m = torch.full((bh, sq, 1), -1e30)
+    l = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    rows = torch.arange(sq)[:, None]
+    for c0 in range(0, k.shape[1], bk):
+        s = _split3(q, k[:, c0:c0 + bk].transpose(1, 2), terms) / d ** 0.5
+        s = torch.where(rows >= torch.arange(c0, c0 + bk)[None, :], s,
+                        -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + _split3(p, v[:, c0:c0 + bk], terms)
+        m = m_new
+    return acc / l
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -(1.0 + 2 ** -11), 1.0 + 2 ** -12, 3.0e38,
+                      float("inf")])
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                         -(1.0 + 2 ** -10), 1.0, float("inf"),
+                         float("inf")])
+    got = _tf32(x)
+    assert torch.equal(got[:5], want[:5])
+    assert got[6] == float("inf")
+    # hi + lo carries 21 of float32's 24 bits
+    r = torch.from_numpy(np.random.default_rng(0).normal(size=4096)
+                         .astype(np.float32))
+    hi = _tf32(r)
+    err = (hi + _tf32(r - hi) - r).abs() / r.abs()
+    assert float(err.max()) < 2 ** -21
+
+
+@pytest.mark.parametrize("bk", [32, 128])
+def test_flash_f32_kernel_needs_three_tf32_products(bk):
+    """Why the float32 kernel takes three TF32 products a product: with
+    them the kernel's rounding holds the card's float32 check (rtol 1e-4,
+    atol 1e-5) against the float32 plain version; with one, as TF32
+    alone gives, it does not (bh 8, 1024 tokens, d 128, causal; the
+    kernel's 32-key tiles and the reference's 128)."""
+    q, k, v = (_t(a) for a in _qkv(8, 1024, 1024, 128, 0))
+    want = flash_attention_plain(q, k, v, causal=True)
+    three = _f32_kernel_rounding(q, k, v, terms=3, bk=bk)
+    one = _f32_kernel_rounding(q, k, v, terms=1, bk=bk)
+    assert torch.allclose(three, want, rtol=1e-4, atol=1e-5)
+    assert not torch.allclose(one, want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("sq,skv", [(200, 128), (128, 200), (384, 320)])
@@ -360,6 +437,137 @@ def test_paged_refuses_bad_shapes_and_dtypes():
                         _t(tables), _t(lengths))
     with pytest.raises(ValueError):
         paged_attention(_t(q), _t(kp), _t(vp), _t(tables), _t(lengths[:2]))
+
+
+def _split_walk_model(q, kp, vp, tables, lengths, span, chunk=CHUNK):
+    """The paged CUDA kernel's split walk in plain torch: per sequence and
+    KV head, each span of `span` tokens below the length runs the online
+    softmax over `chunk`-token chunks into a partial (m, l, acc); the
+    spans then fold in split order (m = max mᵢ, l = Σ lᵢ·e^(mᵢ-m), acc =
+    Σ accᵢ·e^(mᵢ-m)), 0 where no span was walked, NaN for the sequence if
+    any walked table entry of any span lies outside the pool."""
+    bsz, h, hd = q.shape
+    n_blocks, block, kvh, _ = kp.shape
+    g = h // kvh
+    n_pos = tables.shape[1] * block
+    out = torch.zeros((bsz, h, hd))
+    for b in range(bsz):
+        n_tok = min(max(int(lengths[b]), 0), n_pos)
+        parts, bad = [], False
+        for s0 in range(0, n_tok, span):
+            n_here = min(span, n_tok - s0)
+            ids = tables[b, s0 // block:s0 // block - (-n_here // block)]
+            if ((ids < 0) | (ids >= n_blocks)).any():
+                bad = True
+                continue
+            pos = torch.arange(s0, s0 + n_here)
+            rows = ids.long()[(pos - s0) // block], pos % block
+            k_all = kp[rows].float().transpose(0, 1)        # (kvh, t, hd)
+            v_all = vp[rows].float().transpose(0, 1)
+            qf = q[b].float().reshape(kvh, g, hd)
+            m = torch.full((kvh, g, 1), -1e30)
+            l = torch.zeros((kvh, g, 1))
+            acc = torch.zeros((kvh, g, hd))
+            for c0 in range(0, n_here, chunk):
+                kc, vc = k_all[:, c0:c0 + chunk], v_all[:, c0:c0 + chunk]
+                sc = qf @ kc.transpose(1, 2) / hd ** 0.5
+                m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+                p = torch.exp(sc - m_new)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(dim=-1, keepdim=True)
+                acc = acc * corr + p @ vc
+                m = m_new
+            parts.append((m, l, acc))
+        if bad:
+            out[b] = float("nan")
+        elif parts:
+            m = torch.stack([p[0] for p in parts]).amax(dim=0)
+            l = sum(p[1] * torch.exp(p[0] - m) for p in parts)
+            acc = sum(p[2] * torch.exp(p[0] - m) for p in parts)
+            out[b] = (acc / l).reshape(h, hd)
+    return out
+
+
+SPAN, BLOCK, MAX_BLOCKS = 64, 8, 16          # two spans of two chunks
+
+
+def _split_case(lengths, seed=0, kvh=2, h=8, hd=32):
+    return _paged(bsz=len(lengths), h=h, kvh=kvh, hd=hd, n_blocks=160,
+                  block=BLOCK, max_blocks=MAX_BLOCKS, seed=seed)[:4] + (
+        np.array(lengths, np.int32),)
+
+
+@pytest.mark.parametrize("lengths", [
+    [0, 1, SPAN - 1, SPAN, SPAN + 1, MAX_BLOCKS * BLOCK],
+    [SPAN + 31, SPAN + 32, SPAN + 33, 2 * SPAN - 1, -3, 17]])
+def test_split_walk_model_matches_plain_and_pallas(lengths):
+    """The kernel's split walk and ordered merge give the plain version's
+    and the Pallas kernel's result (interpret mode, KV heads broadcast as
+    `ops` does), lengths across the span and chunk edges included."""
+    q, kp, vp, tables, lens = _split_case(lengths)
+    got = _split_walk_model(*(_t(a) for a in (q, kp, vp, tables, lens)),
+                            span=SPAN)
+    plain = paged_attention_plain(*(_t(a) for a in
+                                    (q, kp, vp, tables, lens)))
+    g = q.shape[1] // kp.shape[2]
+    want = paged_attention_pallas(
+        jnp.asarray(q), jnp.repeat(jnp.asarray(kp), g, axis=2),
+        jnp.repeat(jnp.asarray(vp), g, axis=2), jnp.asarray(tables),
+        jnp.asarray(np.maximum(lens, 0)))
+    np.testing.assert_allclose(_np(got), _np(plain), **F32)
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+    assert np.all(_np(got)[[i for i, n in enumerate(lengths) if n <= 0]]
+                  == 0.0)
+
+
+def test_split_walk_model_bad_entry_in_the_last_span_is_nan():
+    """A walked entry outside the pool that only the last span reads makes
+    the whole sequence NaN, as the plain version does; the others keep
+    their values."""
+    lengths = [2 * SPAN - 5, SPAN + 9, 40]
+    q, kp, vp, tables, lens = _split_case(lengths, seed=3)
+    bad = tables.copy()
+    bad[0, (2 * SPAN - 6) // BLOCK] = 160              # last span only
+    bad[1, SPAN // BLOCK + 1] = -1                     # its 2nd span
+    args = [_t(a) for a in (q, kp, vp, bad, lens)]
+    got = _split_walk_model(*args, span=SPAN)
+    plain = paged_attention_plain(*args)
+    assert torch.isnan(got[:2]).all() and torch.isnan(plain[:2]).all()
+    base = _split_walk_model(*(_t(a) for a in (q, kp, vp, tables, lens)),
+                             span=SPAN)
+    assert torch.equal(got[2], base[2])
+    np.testing.assert_allclose(_np(got[2]), _np(plain[2]), **F32)
+
+
+def test_split_walk_model_never_reads_stale_entries():
+    """Entries past ceil(length / block), even outside the pool, change
+    nothing."""
+    lengths = [SPAN + 1, 7, SPAN]
+    q, kp, vp, tables, lens = _split_case(lengths, seed=5)
+    stale = tables.copy()
+    for b, n in enumerate(lengths):
+        stale[b, -(-n // BLOCK):] = [10 ** 6, -9][b % 2]
+    base = _split_walk_model(*(_t(a) for a in (q, kp, vp, tables, lens)),
+                             span=SPAN)
+    got = _split_walk_model(*(_t(a) for a in (q, kp, vp, stale, lens)),
+                            span=SPAN)
+    assert torch.equal(got, base)
+    np.testing.assert_allclose(_np(got), _np(paged_attention_plain(
+        *(_t(a) for a in (q, kp, vp, stale, lens)))), **F32)
+
+
+@pytest.mark.parametrize("block,max_blocks", [
+    (16, 256), (8, 4), (1, 3), (24, 10), (1000, 3), (64, 2), (16, 0),
+    (48, 100)])
+def test_split_plan_covers_every_position(block, max_blocks):
+    """The wrapper's spans are whole blocks and whole chunks, about 512
+    tokens, and cover [0, max_blocks·block) with no span left empty."""
+    span, n_split = split_plan(block, max_blocks)
+    assert span % block == 0 and span % CHUNK == 0
+    assert span <= max(512, block * CHUNK // np.gcd(block, CHUNK))
+    assert n_split * span >= max_blocks * block > (n_split - 1) * span \
+        or max_blocks == n_split == 0
+    assert split_plan(16, 256) == (512, 8)     # the smoke's pool
 
 
 @pytest.mark.parametrize("lengths", [[5, 9, 17], [0, 9, 32], [32, 1, 0]])

@@ -409,6 +409,39 @@ def test_flash_masked_rows_are_the_mean_of_v_on_the_card(cuda):
         rtol=1e-4, atol=1e-5)
 
 
+F32_TC_MASKS = [(True, None), (True, 48), (False, None), (False, 40)]
+
+
+@pytest.mark.parametrize("causal,window", F32_TC_MASKS)
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_f32_tensor_core_kernel_off_its_tiles(cuda, d, causal, window):
+    """The 3xTF32 kernel with sq = 200 (not a multiple of its 64 rows) and
+    skv = 136 (not a multiple of its 32 keys, so TMA zero-fills the last
+    tile past the split Vᵀ), on a (40, 8) function grid: within rtol 1e-4
+    / atol 1e-5 of the plain version, replays bit for bit."""
+    from repro_torch.kernels import flash_attention_plain
+
+    q = _randn((3, 200, d), torch.float32, cuda, 0)
+    k = _randn((3, 136, d), torch.float32, cuda, 1)
+    v = _randn((3, 136, d), torch.float32, cuda, 2)
+    got = KERNELS["flash_attention"](q, k, v, causal, window, 40, 8)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal, window, 40, 8)
+    assert _close(got, want, torch.float32)
+    assert torch.equal(got, KERNELS["flash_attention"](q, k, v, causal,
+                                                       window, 40, 8))
+
+
+def test_flash_f32_masked_rows_are_the_mean_of_v_at_d128(cuda):
+    k = _randn((2, 128, 128), torch.float32, cuda, 1)
+    v = _randn((2, 128, 128), torch.float32, cuda, 2)
+    q = _randn((2, 256, 128), torch.float32, cuda, 0)
+    got = KERNELS["flash_attention"](q, k, v, causal=False, window=64)
+    torch.testing.assert_close(
+        got[:, 191:], v.mean(dim=1, keepdim=True).expand(2, 65, 128),
+        rtol=1e-4, atol=1e-5)
+
+
 def _paged_case(h, kvh, hd, dtype, device, lengths, n_blocks=64, block=16,
                 max_blocks=8, seed=0):
     rng = np.random.default_rng(seed)
@@ -468,6 +501,48 @@ def test_paged_kernel_never_reads_stale_table_entries(cuda):
     torch.cuda.synchronize()
     assert torch.isnan(got[0].float()).all()
     assert torch.equal(got[1:], base[1:])
+
+
+# the smoke's width: Granite-8B's 32/8 heads of 128, 16-token blocks, and
+# the wrapper's 512-token spans (8 a sequence at 256 blocks)
+SPAN_LENGTHS = {
+    "span edges": [1, 511, 512, 513, 1024, 1025, 0, 2047],
+    "one long": [4096, 3, 17, 200, 1, 40],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(SPAN_LENGTHS))
+def test_paged_split_walk_at_the_smokes_width(cuda, name, dtype):
+    from repro_torch.kernels import paged_attention_plain
+
+    lengths = SPAN_LENGTHS[name]
+    args = _paged_case(32, 8, 128, dtype, cuda, lengths,
+                       n_blocks=256 * len(lengths), max_blocks=256)
+    got = KERNELS["paged_attention"](*args)
+    torch.cuda.synchronize()
+    assert _close(got, paged_attention_plain(*args), dtype)
+    assert torch.equal(got, KERNELS["paged_attention"](*args))
+    zero = [i for i, n in enumerate(lengths) if n == 0]
+    assert torch.equal(got[zero], torch.zeros_like(got[zero]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_bad_entry_in_the_last_span_only(cuda, dtype):
+    """An entry outside the pool that only the last of a sequence's spans
+    walks makes the whole sequence NaN; the others are untouched."""
+    lengths = [1500, 1500, 700]
+    args = list(_paged_case(32, 8, 128, dtype, cuda, lengths,
+                            n_blocks=768, max_blocks=256))
+    base = KERNELS["paged_attention"](*args)
+    tables = args[3].clone()
+    tables[0, 1499 // 16] = 768                   # span 2 of 0..2
+    args[3] = tables
+    got = KERNELS["paged_attention"](*args)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[0].float()).all()
+    assert torch.equal(got[1:], base[1:])
+    assert torch.equal(got.isnan(), KERNELS["paged_attention"](*args).isnan())
 
 
 @pytest.mark.parametrize("what", ["dtype", "head_dim", "group", "int64"])
