@@ -97,7 +97,44 @@ kernels/csrc/` and then runs these phases, one output line per step:
            the events time the host's dispatch as much as the kernel),
            BELL on the blocked PageRank layout (and on the
            per-call layout of the dense tiles), with the padded
-           container's bytes beside it as `padded_bound_ms`.
+           container's bytes beside it as `padded_bound_ms`;
+  serve    `serve_graph.GraphEngine` (64 lanes, compile queue 8, one
+           compile a step) over the main path's FD and R-MAT graphs and
+           its plan cache, launch counts set to 0 just before and read
+           just after: 32 requests, four a step -- the main path's eight
+           driver calls first, then seeded ones over both graphs and the
+           four analytics with 1-8 sources -- and three mutations of the
+           R-MAT graph: M1 (step 3) inserts 0.1 % of nnz absent
+           off-diagonal edges, rows and columns uniform, weights in
+           [1, 8]; M2 (step 6) deletes 1,024 stored edges (one each of
+           uniformly drawn rows); M3 (step 10) inserts 0.5 % of nnz.
+           Checks: (1) requests on an unmutated graph that repeat a
+           main-path call equal `kern` (PageRank bit for bit, same
+           iterations); (2) every other request equals its answer run
+           alone, cold, on the graph of the generation it finished in
+           (BFS/SSSP/CC equal; PageRank finite, summing to 1 and within
+           `PR_L1` of it in L1, the bound its residual tolerance implies
+           -- the main path's answer before M1, which is the overlay
+           with its delta pass dropped, must fail that bound); (3) overlays of an integer-valued
+           R-MAT copy equal fresh compiles of their materialised
+           matrices (plus-times with inserts and deletes bit for bit,
+           min_plus and or_and with inserts exactly), `execute_many`
+           replays bit for bit with rows equal to `execute`; (4) the
+           predicted lifecycle actions and cache counters
+           (`PREDICTED_ACTIONS`, `PREDICTED_COUNTERS`), a first wave
+           admitted warm, at least 96 lanes requested at the peak and a
+           preemption; (5) the trace at 2^16 (`--serve-replay-log2n`)
+           run twice with fresh caches: identical schedules, actions and
+           counters, bit-identical values.  Prints the engine's steps,
+           wall and host ms a step, the device time and idle share of
+           two windows of steps from `torch.profiler` traces
+           (`SERVE_TRACE_STEPS`), lanes and padded lanes, admission hit
+           rates, each mutation's
+           host seconds (adjacency delta, operands, `csr_diff`, `merge`,
+           overlay installation, re-keying), the lineages' staleness,
+           overlay installation against the re-plans' compile seconds,
+           the PageRank delta pass against its base SpMV, warm against
+           cold iterations after M1, and the phase's peak memory.
 
 Then one JSON line `{"kernels": [...]}` and, last,
 `{"ok": true, "device": {...}}`.  It exits nonzero and prints no result
@@ -108,7 +145,8 @@ control flow:
 
     python3 chip_smoke.py --cpu-rehearsal --log2n 17 --dia-log2n 12 \
         --reorder-log2n 14 --bell-log2n 13 --reps 3 --attn-seq 256 \
-        --attn-batch 1 --paged-seqs 8 --paged-max-len 512
+        --attn-batch 1 --paged-seqs 8 --paged-max-len 512 \
+        --serve-replay-log2n 12
 """
 from __future__ import annotations
 
@@ -119,6 +157,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -130,6 +169,14 @@ F32_OPS_PER_S = 67e12               # H100 SXM float32 outside tensor cores
 FD_CAP = 1100                       # max_iters of FD bfs/sssp/cc
 PR_TOL = 1e-5                       # PageRank L1 residual tolerance
 PR_RTOL = 1e-3                      # PageRank kernel vs plain, values
+PR_DAMPING = 0.85
+#: two PageRank runs that stop at an L1 residual below PR_TOL: the map
+#: contracts by d in L1, so with a rounding error of at most eta an
+#: iteration each run ends within (d·tol + eta)/(1-d) of the fixpoint,
+#: and the two within twice that of each other; eta = 16 float32 ulps
+#: of the unit mass (1.388e-4, 22 % over the exact 2·d/(1-d)·tol)
+PR_L1 = 2 * (PR_DAMPING * PR_TOL + 16 * float(np.finfo(np.float32).eps)) \
+    / (1 - PR_DAMPING)
 REAL_RTOL, REAL_ATOL = 1e-5, 1e-6   # real-valued plus-times, kernel/plain
 BF16_TC_OPS_PER_S = 989e12          # H100 SXM tensor cores, dense bf16
 TF32_TC_OPS_PER_S = 495e12          # H100 SXM tensor cores, dense TF32
@@ -1109,10 +1156,11 @@ def time_ms(fn, reps: int, dev) -> float:
 def trace_ms(fn, reps: int, dev, kernels=None) -> dict:
     """Device time of each named CUDA kernel per `fn()` call, from a
     torch.profiler trace of `reps` calls: {name: ms, or None when the
-    trace holds no device time for it (and on the CPU)}.  kernels=None
-    gives {"all": ms}, every kernel's summed.  A kernel the trace holds
-    fewer than `reps` launches of (the profiler drops records) counts as
-    one launch a call at its mean over the launches recorded."""
+    trace holds no device time for it (and on the CPU)}.  The name "all"
+    (kernels=None gives {"all": ms}) sums every kernel and copy.  A
+    kernel the trace holds fewer than `reps` launches of (the profiler
+    drops records) counts as one launch a call at its mean over the
+    launches recorded."""
     names = ["all"] if kernels is None else list(kernels)
     if dev.type != "cuda":
         return dict.fromkeys(names)
@@ -1125,16 +1173,24 @@ def trace_ms(fn, reps: int, dev, kernels=None) -> dict:
             fn()
         torch.cuda.synchronize()
     us = dict.fromkeys(names, 0.0)
+    for key, (count, t) in device_records(prof).items():
+        per_call = t / (reps if count >= reps else count)
+        for name in names:
+            if name == "all" or name in key:
+                us[name] += per_call
+    return {name: (t / 1e3 if t > 0 else None) for name, t in us.items()}
+
+
+def device_records(prof) -> dict:
+    """{kernel or copy: (records, device µs)} of a torch.profiler trace;
+    host-side entries, which hold no device time, are left out."""
+    out = {}
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total",
                     getattr(ev, "self_cuda_time_total", 0.0))
-        if t <= 0 or not ev.count:       # host-side ops hold no device time
-            continue
-        per_call = t / (reps if ev.count >= reps else ev.count)
-        for name in names:
-            if kernels is None or name in ev.key:
-                us[name] += per_call
-    return {name: (t / 1e3 if t > 0 else None) for name, t in us.items()}
+        if t > 0 and ev.count:
+            out[ev.key] = (ev.count, t)
+    return out
 
 
 def sparse_csr(rows, cols, vals, n_rows, n_cols):
@@ -1323,6 +1379,591 @@ def timings(K, SR, plans, dev, reps, adjacency=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve: the analytics serving engine over the main path's plans
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS, SERVE_PER_STEP = 32, 4
+SERVE_SEED = 11                     # the random requests' generator
+SERVE_LANES, SERVE_PEAK_LANES = 64, 96
+M1_RATE, M3_RATE = 0.001, 0.005     # inserts, as a fraction of nnz
+M2_DELETES_2_22 = 1024              # deletes at 2^22 rows, scaled by n
+MUTATION_STEPS = {"M1": 3, "M2": 6, "M3": 10}
+#: the engine steps traced for device time and idle share, after the
+#: mutations and their re-plans: while the R-MAT requests still run
+#: beside FD's, and in FD's tail (its BFS / SSSP / CC run to step ~1,100)
+SERVE_TRACE_STEPS = ((21, 120), (501, 600))
+#: the lifecycle the phase predicts for the R-MAT lineages (PERF.md §5)
+PREDICTED_ACTIONS = {
+    "M1": dict.fromkeys(ANALYTICS, "overlay"),
+    "M2": {"pagerank": "overlay", "bfs": "replan", "sssp": "replan",
+           "connected_components": "replan"},
+    "M3": {"pagerank": "replan", "bfs": "overlay", "sssp": "overlay",
+           "connected_components": "overlay"},
+}
+PREDICTED_COUNTERS = {"overlays": 8, "swaps": 4, "delta_recompiles": 4}
+
+
+def serve_requests(SG, adjs):
+    """{arrival step: [AnalyticRequest]}: first the main path's eight
+    driver calls (same sources, tol, r0 and FD cap), then requests drawn
+    from `SERVE_SEED` over both graphs and the four analytics, with 1-8
+    sources each (connected components takes none: one lane), four
+    arriving a step."""
+    reqs = []
+    for fam in ("fd", "rmat"):
+        adj = adjs[fam]
+        src = int(np.argmax(adj.row_lengths()))
+        r0 = np.random.default_rng(7).uniform(0.5, 1.5, adj.n_rows) \
+            .astype(np.float32)
+        for name in ANALYTICS:
+            reqs.append(SG.AnalyticRequest(
+                len(reqs), fam, name,
+                sources=(src,) if name in ("bfs", "sssp") else (),
+                params={"tol": PR_TOL, "r0": r0} if name == "pagerank"
+                else {},
+                max_iters=FD_CAP if fam == "fd" and name != "pagerank"
+                else None))
+    rng = np.random.default_rng(SERVE_SEED)
+    while len(reqs) < SERVE_REQUESTS:
+        fam = ("fd", "rmat")[int(rng.integers(2))]
+        name = ANALYTICS[int(rng.integers(len(ANALYTICS)))]
+        k = int(rng.integers(1, 9))
+        srcs = tuple(int(s) for s in rng.integers(0, adjs[fam].n_rows, k))
+        reqs.append(SG.AnalyticRequest(
+            len(reqs), fam, name,
+            sources=() if name == "connected_components" else srcs,
+            params={"tol": PR_TOL} if name == "pagerank" else {},
+            max_iters=FD_CAP if fam == "fd" and name != "pagerank"
+            else None))
+    out = {}
+    for i, r in enumerate(reqs):
+        out.setdefault(1 + i // SERVE_PER_STEP, []).append(r)
+    return out
+
+
+def insert_batch(D, adj, k, rng):
+    """(k, 3) inserts: absent off-diagonal coordinates, rows and columns
+    drawn uniformly, distinct, integer weights in [1, 8]."""
+    n = adj.n_rows
+    keys = np.zeros(0, np.int64)
+    while keys.size < k:
+        r = rng.integers(0, n, 2 * (k - keys.size) + 16)
+        c = rng.integers(0, n, r.size)
+        _, stored = D.csr_lookup(adj, r, c)
+        new = (r * n + c)[(r != c) & ~stored]
+        keys = np.concatenate([keys, new])
+        _, first = np.unique(keys, return_index=True)
+        keys = keys[np.sort(first)]
+    keys = keys[:k]
+    w = rng.integers(1, 9, k).astype(np.float64)
+    return np.stack([keys // n, keys % n, w], axis=1).astype(np.float64)
+
+
+def delete_batch(adj, k, rng):
+    """(k, 2) deletes: k distinct rows drawn uniformly among the rows
+    that store an edge, one stored edge of each drawn uniformly."""
+    from repro_torch.device import to_numpy
+
+    lens = adj.row_lengths()
+    rows = rng.choice(np.flatnonzero(lens), size=k, replace=False)
+    indptr = to_numpy(adj.indptr).astype(np.int64)
+    cols = to_numpy(adj.indices)[indptr[rows] + rng.integers(0, lens[rows])]
+    return np.stack([rows, cols.astype(np.int64)], axis=1)
+
+
+def make_mutation(SG, D, tag, adj, rid, rng):
+    n = adj.n_rows
+    if tag == "M2":
+        k = max(1, M2_DELETES_2_22 * n >> 22)
+        return SG.GraphMutation(rid, "rmat", deletes=delete_batch(adj, k,
+                                                                  rng))
+    rate = M1_RATE if tag == "M1" else M3_RATE
+    return SG.GraphMutation(rid, "rmat", inserts=insert_batch(
+        D, adj, int(rate * adj.nnz), rng))
+
+
+class StepTrace:
+    """A torch.profiler trace of engine steps `first`..`last` on the
+    card: the window's wall, its device time (every kernel and copy the
+    trace records; one stream, so they do not overlap) split into the
+    SpMV kernels, other kernels and copies, and the wrappers' launches
+    counted in the window beside the records of their kernels, and the
+    records that take the most device time outside the SpMV kernels."""
+
+    def __init__(self, first: int, last: int):
+        self.first, self.last = first, last
+        self.result = None
+
+    def start(self, eng) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch import kernels as K
+
+        torch.cuda.synchronize()
+        self.launches = K.launch_counts()
+        self.compiles = eng.plan_cache.stats()["compiles"]
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.start()
+        self.t0 = time.perf_counter()
+
+    def stop(self, eng) -> None:
+        from repro_torch import kernels as K
+
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - self.t0)
+        self.prof.stop()
+        recs = device_records(self.prof)
+        split = {"spmv": 0.0, "other": 0.0, "copies": 0.0}
+        for key, (_, t) in recs.items():
+            part = ("spmv" if "spmv_" in key else
+                    "copies" if key.startswith(("Memcpy", "Memset"))
+                    else "other")
+            split[part] += t / 1e3
+        now = K.launch_counts()
+        device_ms = sum(split.values())
+        self.result = dict(
+            steps=self.last - self.first + 1, wall_ms=wall_ms,
+            device_ms=device_ms, idle=1 - device_ms / wall_ms, split=split,
+            launches={k: now[k] - self.launches[k] for k in now
+                      if now[k] > self.launches[k]},
+            spmv_records={short_kernel(k): c for k, (c, _) in recs.items()
+                          if "spmv_" in k},
+            top_other=[(short_kernel(k), c, round(t / 1e3, 1))
+                       for k, (c, t) in sorted(
+                           recs.items(), key=lambda kv: -kv[1][1])
+                       if "spmv_" not in k][:8],
+            compiles=eng.plan_cache.stats()["compiles"] - self.compiles)
+        del self.prof
+
+
+def short_kernel(key: str) -> str:
+    """A trace record's name without its parameter list."""
+    if key.startswith(("Memcpy", "Memset")):
+        return key
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split("(")[0][:72]
+
+
+def run_engine(SG, D, adjs, cache, dev, observe=None, traces=()):
+    """Drive one engine over `serve_requests` and the three R-MAT
+    mutations (each built on the adjacency it applies to and submitted
+    before its step in `MUTATION_STEPS`); `observe(eng, tag)` runs after
+    the step that applied a mutation, and each `StepTrace` of `traces`
+    around its window of steps.  Returns the engine, the requests, the R-MAT
+    adjacency of each generation, the mutation tags by request id, the
+    peak lanes requested, the first wave's admission hit rate, the
+    engine's wall seconds (building the batches, `observe` and reading
+    the trace excluded) and the host seconds of each `step()`."""
+    arrivals = serve_requests(SG, adjs)
+    eng = SG.GraphEngine(SG.GraphEngineConfig(
+        n_lanes=SERVE_LANES, compile_queue_cap=8, compiles_per_step=1,
+        device=dev), plan_cache=cache)
+    for fam, adj in adjs.items():
+        eng.register_graph(fam, adj)
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    at_step = {s: tag for tag, s in MUTATION_STEPS.items()}
+    out = types.SimpleNamespace(eng=eng, reqs=[], tags={}, peak=0,
+                                generations=[eng.graphs["rmat"]],
+                                first_hit_rate=None, step_s=[])
+    wall, aside = time.perf_counter(), 0.0
+    while True:
+        s = eng.step_count + 1
+        for r in arrivals.get(s, ()):
+            eng.submit(r)
+            out.reqs.append(r)
+        if s in at_step:
+            t0 = time.perf_counter()
+            rid = 100 + len(out.tags)
+            out.tags[rid] = at_step[s]
+            eng.submit(make_mutation(SG, D, at_step[s], eng.graphs["rmat"],
+                                     rid, rng))
+            aside += time.perf_counter() - t0
+        if eng.idle and s > max(max(arrivals), max(at_step)):
+            break
+        applied = eng.mutations_applied
+        for trace in traces:
+            if s == trace.first:
+                trace.start(eng)
+        t0 = time.perf_counter()
+        eng.step()
+        out.step_s.append(time.perf_counter() - t0)
+        for trace in traces:
+            if s == trace.last:
+                trace.stop(eng)     # stopping and reading it: aside
+                aside += time.perf_counter() - trace.t0 - trace.result[
+                    "wall_ms"] / 1e3
+        out.peak = max(out.peak, sum(r.lanes for r in out.reqs
+                                     if r.req_id not in eng.results))
+        if s == 2:              # the first wave (the main path's calls)
+            adm = eng.admission
+            out.first_hit_rate = adm.warm_hits / max(
+                adm.warm_hits + adm.cold_misses, 1)
+        if eng.mutations_applied > applied:
+            out.generations.append(eng.graphs["rmat"])
+            if observe is not None:
+                t0 = time.perf_counter()
+                observe(eng, at_step[s])
+                aside += time.perf_counter() - t0
+    sync(dev)
+    out.wall = time.perf_counter() - wall - aside
+    return out
+
+
+def iterate(drivers, plan, name, aux, sources, params, cap):
+    """A request run alone from its cold start (no engine): the stepper
+    over `plan`, every lane through `execute_many`."""
+    st = drivers.make_stepper(name, plan, aux, sources=np.asarray(
+        sources, np.int64), params=params)
+    it = 0
+    while it < cap and not st.done:
+        st.advance(plan.execute_many(st.frontier()))
+        it += 1
+    return st.values(), it
+
+
+def pagerank_l1(a, b) -> float:
+    """The largest L1 distance between matching lanes of (k, n) or (n,)
+    PageRank vectors."""
+    d = np.abs(np.atleast_2d(a).astype(np.float64) - np.atleast_2d(b))
+    return float(d.sum(axis=1).max())
+
+
+def pagerank_close(a, b) -> bool:
+    """Two PageRank runs on one graph to PR_TOL from different starts,
+    lane by lane: finite, each lane of `a` summing to 1 within 1e-3, and
+    within PR_L1 of each other in L1 (the bound the residual tolerance
+    implies)."""
+    sums = np.atleast_2d(a).sum(axis=1, dtype=np.float64)
+    return bool(np.isfinite(a).all() and np.isfinite(b).all()
+                and np.all(np.abs(sums - 1.0) < 1e-3)
+                and pagerank_l1(a, b) <= PR_L1)
+
+
+def pagerank_gap(a, b) -> str:
+    """The L1 distance as a share of PR_L1, and the largest relative
+    difference of one entry."""
+    l1 = pagerank_l1(a, b)
+    rel = np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30))
+    return f"l1={l1:.4g} ({l1 / PR_L1:.3f} of PR_L1) max_rel={rel:.3g}"
+
+
+def check_served(drivers, run, kern, cache, dev):
+    """Checks 1 and 2: each request against its answer run alone on the
+    graph of the generation it finished in (mutations applied at or
+    before its finishing step): a main-path repeat on an unmutated graph
+    against `kern` (PageRank bit for bit, same iterations), any other
+    cold from its sources on a plan of that generation's graph."""
+    eng, generations = run.eng, run.generations
+    applied = sorted(eng.mutation_results[m].applied_step for m in run.tags)
+    plans, n_kern, n_cold, n_across, gaps = {}, 0, 0, 0, []
+    for req in run.reqs:
+        res = eng.results[req.req_id]
+        g = sum(a <= res.finished_step for a in applied) \
+            if req.graph_id == "rmat" else 0
+        across = g > sum(a <= res.arrived_step for a in applied)
+        n_across += across
+        adj = generations[g] if req.graph_id == "rmat" else None
+        label = (f"serve req {req.req_id} {req.graph_id} {req.analytic} "
+                 f"lanes={req.lanes} gen={g} across={across}")
+        if req.req_id < 2 * len(ANALYTICS) and g == 0:
+            want = kern[req.graph_id][req.analytic][0]
+            same = np.array_equal(res.values[0], want.values)
+            check(same and res.n_iters == want.n_iters,
+                  f"{label}: differs from the blocking driver (iters "
+                  f"{res.n_iters} vs {want.n_iters})")
+            n_kern += 1
+            continue
+        key = (req.graph_id, g, req.analytic)
+        if key not in plans:
+            graph = adj if adj is not None else eng.graphs[req.graph_id]
+            m, sr, aux = drivers.analytic_operand(req.analytic, graph)
+            plans[key] = (cache.get_or_compile(
+                m, **drivers.plan_options(sr, device=dev)), aux)
+        plan, aux = plans[key]
+        params = {k: v for k, v in req.params.items() if k == "tol"}
+        vals, its = iterate(drivers, plan, req.analytic, aux, req.sources,
+                            params, req.max_iters or 256)
+        if req.analytic == "pagerank" and g > 0:
+            ok = pagerank_close(res.values, vals)
+            gaps.append(f"req {req.req_id}: " +
+                        pagerank_gap(res.values, vals))
+        else:
+            ok = np.array_equal(res.values, vals)
+        check(ok, f"{label}: differs from its cold answer")
+        n_cold += 1
+    log(f"serve checks: {n_kern} repeats against the main path, {n_cold} "
+        f"against cold runs ({len(plans)} plans), {n_across} ran across a "
+        f"mutation")
+    log(f"serve check 2 pagerank after a mutation, served vs cold "
+        f"(PR_L1 {PR_L1:.4g}): " + "; ".join(gaps))
+
+
+def overlay_exact(P, D, adj, dev, gen):
+    """Check 3: overlays of an integer-valued copy of `adj` (values
+    1 + i mod 7, `stream_bench._int_valued`'s scheme) against fresh
+    compiles of their materialised matrices: plus-times with inserts
+    and deletes (integer x, every sum exact), min_plus (+inf in x) and
+    or_and on the pattern with inserts; `execute_many` rows equal
+    `execute`, two calls bit-identical."""
+    from repro_torch.core.formats import CSR
+
+    rows, cols, _ = _coo(adj)
+    n, nnz = adj.n_rows, adj.nnz
+    maxlen = int(adj.row_lengths().max())
+    check(maxlen * 7 * 3 < 2 ** 24, f"serve exact: rows of {maxlen} "
+          "entries could leave float32's exact integers")
+    vals = 1.0 + (torch.arange(nnz, device=dev) % 7).float()
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    for sr in ("plus_times", "min_plus", "or_and"):
+        t0 = time.perf_counter()
+        m = CSR(data=vals if sr != "or_and" else torch.ones_like(vals),
+                indices=adj.indices, indptr=adj.indptr, n_rows=n, n_cols=n)
+        ins = insert_batch(D, m, int(M1_RATE * nnz), rng)
+        if sr == "or_and":
+            ins[:, 2] = 1.0
+        dels = delete_batch(m, max(1, M2_DELETES_2_22 * n >> 22), rng) \
+            if sr == "plus_times" else ()
+        delta = D.EdgeDelta.from_updates(m, inserts=ins, deletes=dels)
+        ov = P.overlay(P.compile(m, semiring=sr, device=dev), delta,
+                       staleness_budget=1.0)
+        fresh = P.compile(ov.materialize(), semiring=sr, device=dev)
+        X = x_for(sr, n, gen, dev) if sr != "plus_times" else \
+            torch.randint(-3, 4, (n,), generator=gen).float().to(dev)
+        X = torch.stack([X, X.roll(1), X.flip(0), X.roll(7)])
+        y = ov.execute(X[0])
+        Y = ov.execute_many(X)
+        same = torch.equal(y, fresh.execute(X[0]))
+        replay = torch.equal(ov.execute_many(X), Y)
+        rows_ok = all(torch.equal(ov.execute(X[i]), Y[i]) for i in range(4))
+        check(same and replay and rows_ok,
+              f"serve exact {sr}: overlay == fresh compile {same}, "
+              f"execute_many replay {replay}, rows == execute {rows_ok}")
+        log(f"serve exact {sr} 2^{n.bit_length() - 1}: {delta.summary()} "
+            f"fmt={ov.format_name}/{fresh.format_name} overlay == fresh "
+            f"compile: {same}; execute_many replay bit-identical {replay}, "
+            f"rows == execute {rows_ok}; inf={int(torch.isinf(y).sum())} "
+            f"s={time.perf_counter() - t0:.1f}")
+        del ov, fresh
+
+
+def replay_small(SG, D, P, fd_matrix, rmat_matrix, log2n, dev):
+    """Check 5: the same trace at 2^log2n, twice, each with a fresh plan
+    cache: identical schedules, mutation actions and cache counters,
+    bit-identical values."""
+    n = 1 << log2n
+    adjs = {"fd": fd_matrix(n, device=dev), "rmat": rmat_matrix(n, device=dev)}
+    runs = []
+    for _ in range(2):
+        eng = run_engine(SG, D, adjs, P.PlanCache(max_plans=64), dev).eng
+        stats = {k: v for k, v in eng.plan_cache.stats().items()
+                 if k != "compile_s"}
+        runs.append((eng.scheduler.log,
+                     {m: r.actions for m, r in eng.mutation_results.items()},
+                     stats,
+                     {r: (v.values.tobytes(), v.n_iters)
+                      for r, v in eng.results.items()}))
+    a, b = runs
+    same = [x == y for x, y in zip(a, b)]
+    check(all(same), f"serve replay 2^{log2n}: schedule, actions, counters, "
+          f"values identical {same}")
+    log(f"serve replay 2^{log2n} x2: steps={len(a[0])} log events, "
+        f"actions {a[1]}, counters {a[2]}, identical (log, actions, "
+        f"counters, values) {same}")
+
+
+def run_serve(args, dev, K, P, SG, D, drivers, fd_matrix, rmat_matrix,
+              adjs, cache, kern, reps):
+    """The serve phase: `GraphEngine` over the main path's graphs and
+    plan cache with 32 requests and three R-MAT mutations, launch counts
+    set to 0 just before and read just after; then checks 1-5 and the
+    phase's times."""
+    seen = {}
+
+    def observe(eng, tag):
+        """After each mutation: the R-MAT lineages' staleness and, after
+        M1, the overlaid PageRank and SSSP plans with their aux."""
+        stale = {}
+        for name in ANALYTICS:
+            st = eng._derived.get(("rmat", name))
+            if st is not None:
+                stale[name] = (0.0 if st.delta is None else
+                               st.delta.nnz / max(st.base_matrix.nnz, 1))
+        log(f"serve {tag} staleness " + " ".join(
+            f"{k}={v:.5f}" for k, v in stale.items()))
+        if tag == "M1":
+            for name in ("pagerank", "sssp"):
+                st = eng._derived[("rmat", name)]
+                seen[name] = (cache.peek(st.key), st.aux)
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    before = cache.stats()
+    traces = [StepTrace(*w) for w in SERVE_TRACE_STEPS] \
+        if dev.type == "cuda" else []
+    K.reset_launch_counts()
+    run = run_engine(SG, D, adjs, cache, dev, observe=observe,
+                     traces=traces)
+    counts = K.launch_counts()
+    eng, tags, wall = run.eng, run.tags, run.wall
+    log(f"serve launches {json.dumps(counts)}")
+    if dev.type == "cuda":
+        for k in ("spmv_ell", "spmv_csr", "spmv_csr_seg"):
+            check(counts[k] > 0, f"serve path launched {k} no time")
+    after = cache.stats()
+    s = eng.stats()
+    aside = sum(v["host_s"] for v in eng.mutation_seconds.values()) + \
+        after["compile_s"] - before["compile_s"]
+    log(f"serve engine: steps={s['steps']} requests={s['finished']}/"
+        f"{s['submitted']} wall_s={wall:.2f} host_ms_per_step="
+        f"{1e3 * wall / s['steps']:.3f} (without mutations and re-plans "
+        f"{1e3 * (wall - aside) / s['steps']:.3f}) "
+        f"spmm_calls={s['spmm_calls']} "
+        f"lanes={s['lanes']} padded_lanes={s['padded_lanes']} "
+        f"preemptions={s['preemptions']} max_running={s['max_running']} "
+        f"peak_lanes_requested={run.peak} warm_hits={s['warm_hits']} "
+        f"cold_misses={s['cold_misses']} backpressure={s['backpressure']} "
+        f"admission_hit_rate={s['admission_hit_rate']:.4f} (first wave "
+        f"{run.first_hit_rate:.4f})")
+    ms = 1e3 * np.asarray(run.step_s)
+    slow = np.argsort(-ms, kind="stable")[:12]
+    log(f"serve engine step host ms: median={np.median(ms):.3f} "
+        f"p90={np.quantile(ms, 0.9):.3f} steps 1-20 {ms[:20].sum():.1f} "
+        f"(mutations and re-plans included), steps 21-{len(ms)} "
+        f"{ms[20:].sum():.1f}; slowest (step, ms): "
+        + str([(int(i) + 1, round(float(ms[i]), 1)) for i in slow]))
+    if not traces:
+        log("serve engine trace: not measured (no card)")
+    for trace in traces:
+        w = trace.result
+        if w is None:
+            log(f"serve engine trace steps {trace.first}-{trace.last}: not "
+                f"measured (the engine stopped at step {s['steps']})")
+            continue
+        kernels_ms = w["split"]["spmv"] + w["split"]["other"]
+        log(f"serve engine trace steps {trace.first}-{trace.last}: "
+            f"wall_ms={w['wall_ms']:.1f} host_ms_per_step="
+            f"{w['wall_ms'] / w['steps']:.3f} device_ms={w['device_ms']:.1f} "
+            f"({w['device_ms'] / w['steps']:.4f} a step: spmv kernels "
+            f"{w['split']['spmv']:.1f}, other kernels "
+            f"{w['split']['other']:.1f}, copies {w['split']['copies']:.1f}) "
+            f"busy_share={1 - w['idle']:.4f} idle_share={w['idle']:.4f} "
+            f"(kernels alone {kernels_ms / w['wall_ms']:.4f}) "
+            f"launches {json.dumps(w['launches'])} spmv kernel records "
+            f"{json.dumps(w['spmv_records'])} compiles={w['compiles']}; "
+            f"most device time outside them (name, records, ms): "
+            f"{w['top_other']}")
+        check(w["split"]["spmv"] > 0, "serve engine trace holds no SpMV "
+              "kernel time")
+    check(run.first_hit_rate == 1.0,
+          f"serve: first wave hit rate {run.first_hit_rate}, not 1.0")
+    check(len(eng.results) == SERVE_REQUESTS, "serve: requests unfinished")
+    check(run.peak >= SERVE_PEAK_LANES and s["preemptions"] >= 1,
+          f"serve: peak lanes {run.peak}, preemptions {s['preemptions']}")
+    # check 4: the predicted lifecycle
+    delta = {k: after[k] - before[k] for k in after if k != "hit_rate"}
+    for rid, tag in tags.items():
+        mr = eng.mutation_results[rid]
+        sec = eng.mutation_seconds[rid]
+        log(f"serve {tag}: step={mr.applied_step} delta_nnz={mr.delta_nnz} "
+            f"actions={mr.actions} " + " ".join(
+                f"{k}={v:.3f}" for k, v in sec.items()))
+        check(mr.actions == PREDICTED_ACTIONS[tag],
+              f"serve {tag}: actions {mr.actions}, predicted "
+              f"{PREDICTED_ACTIONS[tag]}")
+    log(f"serve plan cache: " + " ".join(f"{k}={v}" for k, v in
+                                          delta.items()))
+    for k, v in PREDICTED_COUNTERS.items():
+        check(delta[k] == v, f"serve cache {k}={delta[k]}, predicted {v}")
+    replans = {}
+    for name in ANALYTICS:
+        plan = cache.peek(eng._derived[("rmat", name)].key)
+        base = getattr(plan, "base", plan)
+        replans[name] = compile_seconds(base)
+    m1 = next(r for r, t in tags.items() if t == "M1")
+    log(f"serve overlay vs re-plan: overlay()+install_overlay "
+        f"{eng.mutation_seconds[m1]['overlay_s']:.3f} s for "
+        f"{len(ANALYTICS)} lineages at M1; re-plan compile_s of the last "
+        f"base per lineage " + " ".join(f"{k}={v:.2f}"
+                                        for k, v in replans.items())
+        + f"; cache compile_s in the phase {delta['compile_s']:.2f}")
+    if dev.type == "cuda":
+        log(f"serve peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    t0 = time.perf_counter()
+    check_served(drivers, run, kern, cache, dev)
+    log(f"serve checks 1-2 s={time.perf_counter() - t0:.1f}")
+
+    # the delta pass against the base SpMV, and warm starts, after M1
+    ov, aux = seen["pagerank"]
+    x = torch.ones(ov.n_cols, device=dev)
+    y = ov.base.execute(x)
+    ov_ms, base_ms, pass_ms = (time_ms(fn, reps, dev) for fn in (
+        lambda: ov.execute(x), lambda: ov.base.execute(x),
+        lambda: ov.delta_pass(y, x)))
+    # device time alone, from traces of each (the base by its kernels'
+    # names as well as in all, the delta pass's kernels being PyTorch's)
+    base_kernels = ("spmv_ell_kernel", "spmv_seg_window_kernel",
+                    "spmv_seg_split_kernel")
+    tb = trace_ms(lambda: ov.base.execute(x), reps, dev,
+                  ("all",) + base_kernels)
+    tp = trace_ms(lambda: ov.delta_pass(y, x), reps, dev)["all"]
+    named = [tb[k] for k in base_kernels if tb[k] is not None]
+    t_named = sum(named) if named else None
+
+    def fmt(t):
+        return "not measured" if t is None else f"{t:.4f}"
+
+    log(f"serve delta pass rmat pagerank after M1 ({ov.delta.summary()}, "
+        f"staleness {ov.staleness:.5f}): execute_ms={ov_ms:.4f} "
+        f"base_execute_ms={base_ms:.4f} delta_pass_ms={pass_ms:.4f} "
+        f"(CUDA events); traced delta_pass={fmt(tp)} base all={fmt(tb['all'])}"
+        f" base by kernel name={fmt(t_named)} (" + " ".join(
+            f"{k}={fmt(tb[k])}" for k in base_kernels) + ")")
+    r0 = np.random.default_rng(7).uniform(0.5, 1.5, ov.n_rows) \
+        .astype(np.float32)
+    cold = iterate(drivers, ov, "pagerank", aux, (),
+                   {"tol": PR_TOL, "r0": r0}, 256)
+    warm = iterate(drivers, ov, "pagerank", aux, (),
+                   {"tol": PR_TOL,
+                    "r0": kern["rmat"]["pagerank"][0].values}, 256)
+    check(pagerank_close(warm[0], cold[0]),
+          "serve warm pagerank differs from cold")
+    # the check's own test: the main path's answer on the graph before
+    # M1 -- what the overlay gives with its delta pass dropped -- fails it
+    dropped = kern["rmat"]["pagerank"][0].values
+    check(not pagerank_close(dropped, cold[0][0]),
+          "serve pagerank check passes the answer without the delta pass")
+    log(f"serve pagerank check after M1 (PR_L1 {PR_L1:.4g}): warm vs cold "
+        f"{pagerank_gap(warm[0], cold[0])}; delta pass dropped vs cold "
+        f"{pagerank_gap(dropped, cold[0][0])} (must fail: "
+        f"{not pagerank_close(dropped, cold[0][0])})")
+    sp, sp_aux = seen["sssp"]
+    src = int(np.argmax(adjs["rmat"].row_lengths()))
+    scold = iterate(drivers, sp, "sssp", sp_aux, (src,), {}, 256)
+    swarm = iterate(drivers, sp, "sssp", sp_aux, (src,),
+                    {"d0": kern["rmat"]["sssp"][0].values[None]}, 256)
+    check(np.array_equal(swarm[0], scold[0]),
+          "serve warm sssp differs from cold")
+    log(f"serve warm starts after M1: pagerank iters warm={warm[1]} "
+        f"cold={cold[1]}; sssp iters warm={swarm[1]} cold={scold[1]} "
+        f"(values equal)")
+    del ov, sp
+    seen.clear()
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(9)
+    overlay_exact(P, D, adjs["rmat"], dev, gen)
+    log(f"serve check 3 s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    replay_small(SG, D, P, fd_matrix, rmat_matrix, args.serve_replay_log2n,
+                 dev)
+    log(f"serve check 5 s={time.perf_counter() - t0:.1f}")
+    return counts
+
+
 def _coo(csr):
     rows = torch.repeat_interleave(
         torch.arange(csr.n_rows, device=csr.data.device),
@@ -1350,6 +1991,8 @@ def main(argv=None) -> int:
                     help="sequences of the paged decode runs")
     ap.add_argument("--paged-max-len", type=int, default=4096,
                     help="longest paged sequence (lengths in [1, this])")
+    ap.add_argument("--serve-replay-log2n", type=int, default=16,
+                    help="rows of the serve phase's replayed trace (2^k)")
     ap.add_argument("--reps", type=int, default=50,
                     help="kernel launches per timing")
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1369,6 +2012,8 @@ def main(argv=None) -> int:
         from repro_torch import kernels as K
         from repro_torch import plan as P
         from repro_torch import reorder as T
+        from repro_torch import serve_graph as SG
+        from repro_torch.core import delta as D
         from repro_torch.core.formats import CSR
         from repro_torch.core.generators import fd_matrix, rmat_matrix
         from repro_torch.graph import drivers
@@ -1507,9 +2152,6 @@ def main(argv=None) -> int:
     small = CSR.from_coo(*blocked_coo(1024, TILES_PER_1024), 1024, 1024,
                          device=dev)
     plans[("bell", "small")] = compile_plan(small, format="bell", device=dev)
-    totals = {k: sum(c.get(k, 0) for c in phase_counts.values())
-              for k in K.KERNELS}
-    log(f"launches by path {json.dumps(phase_counts)}")
 
     # -- kernel vs plain -------------------------------------------------------
     plans.update({(fam, name): kern[fam][name][0].plan
@@ -1532,7 +2174,18 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         log(f"time peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    log(f"time total_s={time.perf_counter() - t_start:.1f}")
+    log(f"time done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- serve ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    phase_counts["serve"] = run_serve(
+        args, dev, K, P, SG, D, drivers, fd_matrix, rmat_matrix, adjs,
+        cache, kern, args.reps)
+    log(f"serve phase_s={time.perf_counter() - t0:.1f}")
+    totals = {k: sum(c.get(k, 0) for c in phase_counts.values())
+              for k in K.KERNELS}
+    log(f"launches by path {json.dumps(phase_counts)}")
+    log(f"total_s={time.perf_counter() - t_start:.1f}")
 
     kernels = []
     for name in K.KERNELS:

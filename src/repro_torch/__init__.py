@@ -3,18 +3,23 @@ NVIDIA H100, beside the JAX reference package `repro`.
 
     core      CSR/ELL/BELL/DIA/HYB containers, FD and R-MAT generators,
               structure analysis (byte-identical to the reference's),
-              and the per-call `auto_format` / `spmv`
+              the per-call `auto_format` / `spmv`, and the edge deltas
+              of streaming graphs (`EdgeDelta`, `csr_diff`)
     reorder   RCM, degree sort, cache blocking and their chains
     kernels   seven CUDA kernels (DIA, ELL, padded CSR, segmented CSR,
               BELL, flash attention, paged attention), each with a plain
               PyTorch version beside it, the per-call `ops` wrappers and
               the attention oracles in `ref`
     plan      compile-once plans: analyze -> reorder -> format -> layout
-              -> execute
+              -> execute; overlaid plans (a plan plus an edge delta,
+              served warm) and the cache's streaming lifecycle
     graph     semirings and the PageRank / BFS / SSSP / connected
-              components drivers
+              components drivers, with warm starts across deltas
     serve     the paged KV pool: block allocator, pool, token scatter
               and gather
+    serve_graph  the analytics serving engine: admission over the plan
+              cache, a lane-pool scheduler, coalesced SpMMs on the card
+              and the mutation lifecycle of streaming graphs
 
 Entry points run on the card unless the caller passes device="cpu".
 """

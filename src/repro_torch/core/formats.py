@@ -85,6 +85,15 @@ class CSR:
     def row_lengths(self) -> np.ndarray:
         return np.diff(to_numpy(self.indptr))
 
+    def apply_delta(self, delta) -> "CSR":
+        """This matrix with a `repro_torch.core.delta.EdgeDelta` applied,
+        on the same device: deleted coordinates removed structurally,
+        inserts appended, rebuilt canonically through `from_coo`.  The
+        streaming plan lifecycle calls it when a delta outgrows its
+        overlay budget and the plan re-compiles."""
+        from .delta import apply_delta as _apply
+        return _apply(self, delta)
+
     def permute(self, row_perm=None, col_perm=None) -> "CSR":
         """A' with A'[i, j] = A[row_perm[i], col_perm[j]] (`row_perm[i]`
         names the OLD row at NEW position i; None is the identity).

@@ -20,8 +20,14 @@ so push-style traversals run on the transpose.  `device=None` means the
 card; pass device="cpu" for the plain versions on the CPU.  Every driver
 takes `reorder=` (a strategy name, callable or `Reordering`) and passes
 it to the plan, whose iterations then run on the permuted operand while
-the values stay in the original vertex order.  Warm starts across graph
-deltas (A6) and serving (A8) wait for their slices.
+the values stay in the original vertex order.
+
+Warm starts: after an edge delta, `warm_start_params` says whether an
+analytic may resume from its converged values (`r0` for PageRank, `d0`
+for SSSP, `l0` for connected components; the reference's rules) or
+must re-seed; warm state arrives as numpy and goes onto the plan's
+device.  The steppers are also what `repro_torch.serve_graph` batches
+across concurrent requests.
 """
 from __future__ import annotations
 
@@ -252,14 +258,27 @@ class BfsStepper:
         return to_numpy(self.depth)
 
 
-class SsspStepper:
-    """min_plus Bellman-Ford relaxation, k source lanes."""
+def _warm(values, shape, device) -> torch.Tensor:
+    """Prior values (numpy or array-like) as a float32 tensor of `shape`
+    on `device`."""
+    return torch.as_tensor(np.asarray(values, np.float32).reshape(shape),
+                           device=device)
 
-    def __init__(self, plan, aux: Dict, sources=(), **_):
+
+class SsspStepper:
+    """min_plus Bellman-Ford relaxation, k source lanes.  `d0` (k, n)
+    warm-starts from prior distances: after insert-only deltas they are
+    valid upper bounds, so relaxation resumes from them; deletes can
+    raise true distances and need a re-seed (`warm_start_params`)."""
+
+    def __init__(self, plan, aux: Dict, sources=(), d0=None, **_):
         n, dev = plan.n_cols, plan.device
         sources = check_sources(sources, n, "sssp")
         self.plan, self.k = plan, len(sources)
         self.dist = _source_rows(sources, n, np.inf, 0.0, dev)
+        if d0 is not None:
+            self.dist = torch.minimum(_warm(d0, (self.k, n), dev),
+                                      self.dist)
         self.done = self.k == 0
 
     def frontier(self) -> torch.Tensor:
@@ -279,12 +298,16 @@ class SsspStepper:
 
 class CcStepper:
     """Min-label propagation to the component-wise minimum vertex id;
-    one lane, sources ignored."""
+    one lane, sources ignored.  `l0` warm-starts from prior labels
+    (valid upper bounds after insert-only deltas; deletes can split
+    components and need a re-seed)."""
 
-    def __init__(self, plan, aux: Dict, sources=(), **_):
+    def __init__(self, plan, aux: Dict, sources=(), l0=None, **_):
         n, dev = plan.n_cols, plan.device
         self.plan, self.k = plan, 1
         self.labels = torch.arange(n, dtype=torch.float32, device=dev)[None]
+        if l0 is not None:
+            self.labels = torch.minimum(_warm(l0, (1, n), dev), self.labels)
         self.done = False
 
     def frontier(self) -> torch.Tensor:
@@ -346,6 +369,29 @@ def make_stepper(analytic: str, plan, aux: Dict, sources=(), params=None):
                                        **(params or {}))
 
 
+#: Stepper argument each analytic consumes to resume from prior values.
+WARM_START_PARAM = {"pagerank": "r0", "sssp": "d0",
+                    "connected_components": "l0"}
+
+
+def warm_start_params(analytic: str, values, delta=None) -> Optional[Dict]:
+    """Stepper params resuming `analytic` from converged `values` after
+    edge delta `delta`, or None when correctness needs a re-seed (the
+    reference's rules): PageRank always resumes (power iteration reaches
+    its unique fixpoint from any start); SSSP and CC resume after
+    insert-only deltas (old values are upper bounds the monotone
+    iteration drives down) and re-seed after deletes or an unknown
+    (None) delta; BFS never resumes (its level-synchronous depths go
+    stale under any delta).  `delta` may be the adjacency's or the
+    operand's."""
+    kw = WARM_START_PARAM.get(analytic)
+    if kw is None:
+        return None
+    if analytic != "pagerank" and (delta is None or delta.has_deletes):
+        return None
+    return {kw: np.asarray(values, dtype=np.float32)}
+
+
 def _drive(stepper, plan, max_iters: int, multi: bool) -> GraphResult:
     """Pull `frontier()`, run the plan, feed `advance()`: single-source
     goes through `execute` (the kernels), multi-source through
@@ -403,36 +449,39 @@ def bfs(adj: CSR, source: Union[int, Sequence[int]],
 
 
 def sssp(adj: CSR, source: int, max_iters: Optional[int] = None, *,
-         reorder="none", format: Optional[str] = None,
+         d0=None, reorder="none", format: Optional[str] = None,
          plan_cache=None, use_pallas: bool = True,
          device=None) -> GraphResult:
     """Single-source shortest paths by Bellman-Ford relaxation
     d' = d ⊕ (A^T (min,+) d) to fixpoint; unreachable vertices keep
-    +inf."""
+    +inf.  `d0` warm-starts from prior distances (valid after
+    insert-only graph deltas)."""
     n = _require_square(adj, "sssp")
     dev = _plan_device(device)
     matrix, _, aux = analytic_operand("sssp", adj)
     p = _graph_plan(matrix, MIN_PLUS, reorder=reorder, format=format,
                     plan_cache=plan_cache, use_pallas=use_pallas,
                     device=dev)
-    st = SsspStepper(p, aux, sources=[source])
+    st = SsspStepper(p, aux, sources=[source], d0=d0)
     return _drive(st, p, n if max_iters is None else max_iters, multi=False)
 
 
 def connected_components(adj: CSR, max_iters: Optional[int] = None, *,
-                         reorder="none",
+                         l0=None, reorder="none",
                          format: Optional[str] = None, plan_cache=None,
                          use_pallas: bool = True,
                          device=None) -> GraphResult:
     """Component labels (the minimum vertex id of each component) by
-    min-label propagation over the symmetrized zero-weight pattern."""
+    min-label propagation over the symmetrized zero-weight pattern.
+    `l0` warm-starts from prior labels (valid after insert-only
+    deltas)."""
     n = _require_square(adj, "connected_components")
     dev = _plan_device(device)
     matrix, _, aux = analytic_operand("connected_components", adj)
     p = _graph_plan(matrix, MIN_PLUS, reorder=reorder, format=format,
                     plan_cache=plan_cache, use_pallas=use_pallas,
                     device=dev)
-    st = CcStepper(p, aux)
+    st = CcStepper(p, aux, l0=l0)
     return _drive(st, p, n if max_iters is None else max_iters, multi=False)
 
 
@@ -443,4 +492,4 @@ __all__ = ["GraphResult", "transpose_csr", "pagerank", "bfs", "sssp",
            "connected_components", "DRIVERS", "AnalyticDef", "ANALYTICS",
            "analytic_operand", "make_stepper", "check_sources",
            "plan_options", "PageRankStepper", "BfsStepper", "SsspStepper",
-           "CcStepper"]
+           "CcStepper", "warm_start_params", "WARM_START_PARAM"]

@@ -5,14 +5,22 @@
     p = plan.compile(csr, reorder="rcm")   # reorder first; x, y unchanged
     y = p.execute(x)                 # one hand-written kernel per SpMV
     Y = p.execute_many(X)            # one execute per row of X
+    ov = plan.overlay(p, delta)      # p + an EdgeDelta, served warm
+    y = ov.execute(x)                # base SpMV, then the O(delta) pass
 """
-from .cache import DEFAULT_CACHE, PlanCache, get_plan
+from .cache import DEFAULT_CACHE, PlanCache, compile_kwargs, get_plan
 from .compiler import (SEMIRING_FORMATS, choose_format, compile, convert,
                        plan_for_container)
-from .fingerprint import fingerprint_arrays, matrix_fingerprint
+from .fingerprint import (chain_fingerprint, delta_fingerprint,
+                          fingerprint_arrays, forget_fingerprint,
+                          matrix_fingerprint)
+from .overlay import (DEFAULT_STALENESS_BUDGET, OverlaidPlan, overlay,
+                      overlay_eligible)
 from .plan import SpmvPlan
 
 __all__ = ["SpmvPlan", "compile", "choose_format", "convert",
            "plan_for_container", "SEMIRING_FORMATS", "PlanCache",
-           "DEFAULT_CACHE", "get_plan", "matrix_fingerprint",
-           "fingerprint_arrays"]
+           "DEFAULT_CACHE", "get_plan", "compile_kwargs",
+           "matrix_fingerprint", "fingerprint_arrays", "delta_fingerprint",
+           "chain_fingerprint", "forget_fingerprint", "OverlaidPlan",
+           "overlay", "overlay_eligible", "DEFAULT_STALENESS_BUDGET"]

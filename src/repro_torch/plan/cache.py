@@ -9,9 +9,14 @@ two packages produce the same key string, and so they do for a
 callable option's token carries its module path, so a strategy callable
 of the port (`repro_torch.reorder...`) cannot key as the reference's
 (`repro.reorder...`) does.  A `device` option, when given, is part of
-the key like any other.  The overlay, swap and delta-recompile counters
-wait for the streaming slice (ROADMAP A6), the mesh / partition tokens
-for theirs.
+the key like any other.
+
+The streaming plan lifecycle (`plan.overlay`, `serve_graph`) uses
+`peek`, `chained_key`, `install_overlay`, `swap` and
+`note_delta_recompile`, counted in `overlays`, `swaps` and
+`delta_recompiles`.  The reference's `predictor_*` / `oracle_*`
+compile counters come with candidate scoring (ROADMAP A9), the mesh /
+partition option tokens with sharded plans (A10).
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ from typing import Callable, Dict
 
 import numpy as np
 
-from .fingerprint import fingerprint_arrays, matrix_fingerprint
+from .fingerprint import (fingerprint_arrays, forget_fingerprint,
+                          matrix_fingerprint)
 
 
 def _fn_token(v) -> str:
@@ -60,6 +66,14 @@ def _opt_token(v) -> str:
     return repr(v)
 
 
+def compile_kwargs(opts: Dict) -> Dict:
+    """A keyed option dict as `compile` takes it: the reference's
+    `interpret=None` (which `graph.drivers.plan_options` gives, so that
+    keys stay the reference's) is dropped."""
+    return {k: v for k, v in opts.items()
+            if not (k == "interpret" and v is None)}
+
+
 class PlanCache:
     """LRU cache of compiled `SpmvPlan`s keyed by matrix content +
     options."""
@@ -73,6 +87,12 @@ class PlanCache:
         self.evictions = 0
         self.compiles = 0
         self.compile_s = 0.0
+        # streaming lifecycle: overlaid plans installed, atomic base
+        # swaps landed, re-plans forced by a past-budget (or
+        # overlay-ineligible) delta
+        self.overlays = 0
+        self.swaps = 0
+        self.delta_recompiles = 0
 
     def __len__(self) -> int:
         return len(self._plans)
@@ -87,6 +107,51 @@ class PlanCache:
         """Probe: no LRU promotion, no hit/miss accounting."""
         with self._lock:
             return key in self._plans
+
+    def peek(self, key: str):
+        """The resident value for `key`, or None; a probe like
+        `contains`."""
+        with self._lock:
+            return self._plans.get(key)
+
+    @staticmethod
+    def chained_key(old_key: str, fingerprint: str) -> str:
+        """Re-key an entry under a new (chained) fingerprint, keeping the
+        option salt: no matrix re-hash."""
+        _, salt = old_key.split("|", 1)
+        return f"{fingerprint}|{salt}"
+
+    def install_overlay(self, key: str, overlaid, supersedes: str | None = None
+                        ) -> None:
+        """Insert an `OverlaidPlan` under its chained key and drop the
+        superseded generation in the same critical section, so no probe
+        ever sees both generations warm."""
+        with self._lock:
+            self._plans[key] = overlaid
+            self._plans.move_to_end(key)
+            self.overlays += 1
+            if supersedes is not None and supersedes != key:
+                self._plans.pop(supersedes, None)
+            while len(self._plans) > self.max_plans:
+                self._plans.popitem(last=False)
+                self.evictions += 1
+
+    def swap(self, key: str, builder: Callable[[], object],
+             supersedes: str | None = None):
+        """Atomic re-plan landing: build (or reuse) the plan for `key`
+        and retire the superseded generation; after `swap` returns,
+        probes see exactly one generation."""
+        value = self.get_or_build(key, builder)
+        with self._lock:
+            if supersedes is not None and supersedes != key:
+                self._plans.pop(supersedes, None)
+            self.swaps += 1
+        return value
+
+    def note_delta_recompile(self) -> None:
+        """Count one delta-forced re-plan, when it is scheduled."""
+        with self._lock:
+            self.delta_recompiles += 1
 
     def get_or_build(self, key: str, builder: Callable[[], object]):
         """The cached value for `key`, or build, insert (evicting the
@@ -121,15 +186,33 @@ class PlanCache:
         from .compiler import compile as _compile
 
         key = self.key_for(matrix, **opts)
-        if "interpret" in opts and opts["interpret"] is None:
-            del opts["interpret"]
-        return self.get_or_build(key, lambda: _compile(matrix, **opts))
+        return self.get_or_build(
+            key, lambda: _compile(matrix, **compile_kwargs(opts)))
+
+    def invalidate(self, matrix_or_fingerprint) -> int:
+        """Drop every plan for a matrix (any options): given a
+        fingerprint string or the container itself, whose memoised digest
+        is forgotten first so plans under the stale digest and under the
+        re-hash of its current bytes both go.  Returns the count."""
+        if isinstance(matrix_or_fingerprint, str):
+            fps = {matrix_or_fingerprint}
+        else:
+            stale_fp = forget_fingerprint(matrix_or_fingerprint)
+            fps = {matrix_fingerprint(matrix_or_fingerprint)}
+            if stale_fp is not None:
+                fps.add(stale_fp)
+        with self._lock:
+            stale = [k for k in self._plans if k.split("|", 1)[0] in fps]
+            for k in stale:
+                del self._plans[k]
+            return len(stale)
 
     def clear(self) -> None:
         with self._lock:
             self._plans.clear()
             self.hits = self.misses = self.evictions = self.compiles = 0
             self.compile_s = 0.0
+            self.overlays = self.swaps = self.delta_recompiles = 0
 
     def stats(self) -> Dict[str, float]:
         with self._lock:
@@ -138,6 +221,8 @@ class PlanCache:
                     "misses": self.misses, "evictions": self.evictions,
                     "compiles": self.compiles,
                     "compile_s": round(self.compile_s, 6),
+                    "overlays": self.overlays, "swaps": self.swaps,
+                    "delta_recompiles": self.delta_recompiles,
                     "hit_rate": self.hits / served if served else 0.0}
 
 
@@ -149,4 +234,4 @@ def get_plan(matrix, **opts):
     return DEFAULT_CACHE.get_or_compile(matrix, **opts)
 
 
-__all__ = ["PlanCache", "DEFAULT_CACHE", "get_plan"]
+__all__ = ["PlanCache", "DEFAULT_CACHE", "get_plan", "compile_kwargs"]

@@ -115,3 +115,28 @@ def blocked_coo(n: int = 1024, n_blocks: int = 12, seed: int = 0):
     vals = rng.normal(size=rows.shape[0]).astype(np.float32)
     return rows, cols, vals
 
+
+
+def coo_of(csr):
+    """(rows, cols, vals) of either package's CSR as numpy (int64, int64,
+    float32), in CSR order."""
+    from repro_torch.device import to_numpy
+
+    indptr = to_numpy(csr.indptr).astype(np.int64)
+    rows = np.repeat(np.arange(csr.n_rows, dtype=np.int64), np.diff(indptr))
+    return (rows, to_numpy(csr.indices).astype(np.int64),
+            to_numpy(csr.data).astype(np.float32))
+
+
+def fresh_coords(csr, k: int, rng, avoid=()):
+    """`k` coordinates absent from `csr` and from `avoid`, drawn with
+    `rng` as `tests/test_streaming.py:_fresh_coords` draws them."""
+    rows, cols, _ = coo_of(csr)
+    present = set(zip(rows.tolist(), cols.tolist())) | set(avoid)
+    out = []
+    while len(out) < k:
+        r, c = int(rng.integers(csr.n_rows)), int(rng.integers(csr.n_cols))
+        if (r, c) not in present:
+            out.append((r, c))
+            present.add((r, c))
+    return out

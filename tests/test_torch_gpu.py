@@ -10,8 +10,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from _torch_parity import (FAMILIES, SEMIRING_NAMES, blocked_coo,
-                           port_int_operands, within_bf16_ulp)
+from _torch_parity import (FAMILIES, SEMIRING_NAMES, blocked_coo, coo_of,
+                           fresh_coords, port_int_operands, within_bf16_ulp)
 
 from repro_torch.graph import drivers as tdrv
 from repro_torch.graph.semiring import SEMIRINGS
@@ -601,3 +601,118 @@ def test_ops_and_pool_on_the_card(cuda):
         q, pool["k"][0], pool["v"][0], tables.int(), lens.int()))
     assert within_bf16_ulp(fl[0], flash_attention_plain(
         qf[0], qf[0], qf[0], True, 64))
+
+
+# ---------------------------------------------------------------------------
+# streaming: overlaid plans and the serving engine on the card
+# ---------------------------------------------------------------------------
+
+def _card_delta(csr, sr_name, seed):
+    """Integer inserts in the semiring's domain and, under plus_times,
+    deletes of stored edges."""
+    from repro_torch.core.delta import EdgeDelta
+
+    rng = np.random.default_rng(seed)
+    hi = 1 if sr_name == "or_and" else 8
+    ins = [(r, c, float(rng.integers(1, hi + 1)))
+           for r, c in fresh_coords(csr, 40, rng)]
+    rows, cols, _ = coo_of(csr)
+    dels = [(int(rows[p]), int(cols[p])) for p in
+            rng.choice(rows.size, 20, replace=False)] \
+        if sr_name == "plus_times" else []
+    return EdgeDelta.from_updates(csr, inserts=ins, deletes=dels)
+
+
+@pytest.mark.parametrize("sr_name", ["plus_times", "min_plus", "or_and"])
+@pytest.mark.parametrize("fmt", ["hyb", "csr"])
+def test_overlaid_plan_equals_its_materialization_on_the_card(
+        cuda, fmt, sr_name):
+    """An overlaid HYB or padded-CSR plan at 2^12 answers as a fresh
+    compile of its materialised matrix: bit for bit on integer-valued
+    plus-times (deletes included), exactly under min_plus (+inf in x)
+    and or_and; the delta pass runs on the card, its `execute_many`
+    replays bit for bit with rows equal to `execute`, and the CPU's
+    overlay gives the same numbers."""
+    from repro_torch.plan import overlay
+
+    csr, x = port_int_operands("rmat", 1 << 12, 5, sr_name, device=cuda)
+    if sr_name == "min_plus":
+        x[::97] = np.inf
+    delta = _card_delta(csr, sr_name, 6)
+    kw = dict(format=fmt, semiring=sr_name)
+    ov = overlay(tcompile(csr, device=cuda, **kw), delta,
+                 staleness_budget=1.0)
+    fresh = tcompile(ov.materialize(), device=cuda, **kw)
+    assert ov.materialize().device == csr.device
+    xt = torch.from_numpy(x).to(cuda)
+    reset_launch_counts()
+    y = ov.execute(xt)
+    torch.cuda.synchronize()
+    assert sum(launch_counts().values()) >= 1
+    assert y.device == xt.device
+    assert torch.equal(y, fresh.execute(xt))
+    X = torch.stack([xt, xt.roll(1), xt.flip(0), xt.roll(5)])
+    Y = ov.execute_many(X)
+    assert torch.equal(ov.execute_many(X), Y)
+    assert all(torch.equal(ov.execute(X[k]), Y[k]) for k in range(4))
+    cpu = overlay(tcompile(csr.to("cpu"), device="cpu", **kw), delta,
+                  staleness_budget=1.0)
+    assert torch.equal(cpu.execute(torch.from_numpy(x)), y.cpu())
+
+
+def _card_trace(cuda, cache):
+    """An engine trace on the card with two R-MAT mutations: an
+    overlay for every lineage, then deletes (re-plans and a swap for
+    the ⊕-only semirings)."""
+    from repro_torch.core.generators import fd_matrix, rmat_matrix
+    from repro_torch.serve_graph import (AnalyticRequest, GraphEngine,
+                                         GraphEngineConfig, GraphMutation)
+
+    g = {"fd": fd_matrix(1 << 12, device=cuda),
+         "rmat": rmat_matrix(1 << 12, device=cuda)}
+    eng = GraphEngine(GraphEngineConfig(n_lanes=16, compiles_per_step=None,
+                                        device=cuda), plan_cache=cache)
+    for gid, adj in g.items():
+        eng.register_graph(gid, adj)
+    for i, (gid, name, src) in enumerate([
+            ("rmat", "pagerank", (1, 2)), ("rmat", "sssp", (0, 3)),
+            ("rmat", "bfs", (4,)), ("rmat", "connected_components", ()),
+            ("fd", "bfs", (0, 9, 17)), ("fd", "pagerank", ())]):
+        eng.submit(AnalyticRequest(i, gid, name, sources=src,
+                                   params={"tol": 1e-5}
+                                   if name == "pagerank" else {}))
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        eng.step()
+    ins = tuple((r, c, 2.0) for r, c in fresh_coords(g["rmat"], 8, rng))
+    eng.submit(GraphMutation(100, "rmat", inserts=ins))
+    for _ in range(2):
+        eng.step()
+    rows, cols, _ = coo_of(eng.graphs["rmat"])
+    eng.submit(GraphMutation(101, "rmat", deletes=tuple(
+        (int(rows[p]), int(cols[p])) for p in rng.choice(rows.size, 4,
+                                                         replace=False))))
+    out = eng.run()
+    return (eng.scheduler.log,
+            {m: r.actions for m, r in eng.mutation_results.items()},
+            {k: v for k, v in eng.plan_cache.stats().items()
+             if k != "compile_s"},
+            {r: (v.values.tobytes(), v.n_iters) for r, v in out.items()})
+
+
+def test_engine_trace_with_mutations_replays_on_the_card(cuda):
+    """Two runs of one trace, each with a fresh plan cache: the same
+    schedule, mutation actions and counters, bit-identical values; the
+    coalesced SpMMs ran through the kernels."""
+    from repro_torch.plan import PlanCache
+
+    reset_launch_counts()
+    a = _card_trace(cuda, PlanCache())
+    counts = launch_counts()
+    b = _card_trace(cuda, PlanCache())
+    assert a == b
+    assert a[1][100] == dict.fromkeys(
+        ("pagerank", "sssp", "bfs", "connected_components"), "overlay")
+    assert a[1][101]["sssp"] == "replan" and \
+        a[1][101]["pagerank"] == "overlay"
+    assert counts["spmv_csr_seg"] > 0 and counts["spmv_ell"] > 0

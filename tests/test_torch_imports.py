@@ -19,6 +19,38 @@ def test_no_jax_or_reference_imports(path):
     assert not hits, f"{path.name} imports {hits}"
 
 
+#: the streaming and serving slice: each module and the names it must
+#: carry (the reference's, where the reference has them)
+SLICE_MODULES = {
+    "repro_torch.core.delta": ("EdgeDelta", "csr_lookup", "csr_diff",
+                               "apply_delta"),
+    "repro_torch.plan.fingerprint": ("delta_fingerprint",
+                                     "chain_fingerprint",
+                                     "forget_fingerprint"),
+    "repro_torch.plan.cache": ("PlanCache", "compile_kwargs"),
+    "repro_torch.plan.overlay": ("OverlaidPlan", "overlay",
+                                 "overlay_eligible",
+                                 "DEFAULT_STALENESS_BUDGET"),
+    "repro_torch.graph.drivers": ("warm_start_params", "WARM_START_PARAM"),
+    "repro_torch.serve_graph.requests": ("AnalyticRequest", "AnalyticResult",
+                                         "GraphMutation", "MutationResult"),
+    "repro_torch.serve_graph.admission": ("AdmissionController",),
+    "repro_torch.serve_graph.scheduler": ("GraphScheduler",
+                                          "RunningRequest"),
+    "repro_torch.serve_graph.engine": ("GraphEngine", "GraphEngineConfig"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(SLICE_MODULES))
+def test_streaming_and_serving_modules(module):
+    import importlib
+
+    mod = importlib.import_module(module)
+    missing = [n for n in SLICE_MODULES[module] if not hasattr(mod, n)]
+    assert not missing, f"{module} lacks {missing}"
+    assert (REPO / "src" / (module.replace(".", "/") + ".py")) in FILES
+
+
 def test_port_imports_without_jax_loaded():
     """Importing every port module in a fresh interpreter loads neither
     jax nor repro."""
