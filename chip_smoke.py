@@ -57,12 +57,33 @@ kernels/csrc/` and then runs these phases, one output line per step:
            plans: two calls bit-identical, each row equal to `execute`;
   dia      FD PageRank at 2^16, where the compiler picks DIA, counted the
            same way, against its plain path;
-  reorder  a banded matrix (bandwidth 8) at 2^22 under a seeded symmetric
-           permutation: `rcm` recovers the band, `auto_format(...,
-           reordering=r)` gives DIA, the per-call `spmv(..., reordering=
-           r)` (DIA kernel) equals `spmv(scrambled)` (padded CSR) within
-           rtol 1e-5 and `plan.compile(scrambled, reorder=r)` is DIA and
-           equals the per-call result bit for bit;
+  compile  the reference's default `plan.compile` (reorder="auto",
+           predictor="auto": 'none' against 'rcm', scored by the shipped
+           cost model) on the main path's FD and R-MAT and on `banded_
+           matrix(2^22, 8)` under the seeded symmetric permutation
+           `default_rng(0).permutation` (its fingerprints pinned at
+           2^22): each candidate's 19 features, predicted log2 GFLOPS
+           and GFLOPS, the decision, scoring and stage seconds; it fails
+           unless the model scored them, each model score is 2 ** the
+           model of its features, and the decision and scores equal the
+           reference's on the same matrix (`REFERENCE_DECISIONS`, from
+           `tools/reference_decisions.py`, as float.hex).
+           `predictor="oracle"` on the band (analytic: RCM and DIA) and
+           on R-MAT 2^11 (replay) through a fresh `PlanCache`, whose
+           predictor / oracle compiles must be 1 / 1.  Each plan runs
+           through its kernels, launch counts set to 0 just before and
+           read just after; with integer values in its container and
+           layout it equals its use_pallas=False twin bit for bit, with
+           its own values within rtol 1e-5.  Then `core.spmv.pagerank`
+           on FD 2^22 (32 iterations) within rtol 1e-3 of its plain
+           path, `power_iteration` on the band within rtol 1e-5, and the
+           dense branch at 2^12 bit for bit;
+  reorder  the same scrambled band: `rcm` (the oracle compile's)
+           recovers the band, `auto_format(..., reordering=r)` gives
+           DIA, the per-call `spmv(..., reordering=r)` (DIA kernel)
+           equals `spmv(scrambled)` (padded CSR) within rtol 1e-5 and
+           `plan.compile(scrambled, reorder=r)` is DIA and equals the
+           per-call result bit for bit;
   rmat_rcm R-MAT 2^22 PageRank with `reorder=r`, r = rcm of its operand
            computed once, kernels against the plain path;
   bell     a blocked graph at 2^21 (dense 8x128 tiles, 12 per 1024
@@ -152,6 +173,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import re
 import subprocess
@@ -189,6 +211,30 @@ TPU_KERNELS = {
     "flash_attention": "src/repro/kernels/flash_attention.py:88",
     "paged_attention": "src/repro/kernels/paged_attention.py:86",
 }
+#: the reference's `plan.compile` decisions on the same matrices
+#: (`PYTHONPATH=src JAX_PLATFORMS=cpu python3 tools/reference_decisions.py`;
+#: R-MAT 2^11 from `repro.plan.compile(rmat_matrix(2048), predictor=...)`):
+#: (chosen, format, scoring, {candidate: predicted GFLOPS as float.hex})
+REFERENCE_DECISIONS = {
+    "fd": ("none", "csr", "model", {"none": "0x1.fac8fac0cd2afp+0",
+                                    "rcm": "0x1.fa416cded7e14p+0"}),
+    "rmat": ("none", "hyb", "model", {"none": "0x1.ff64321937dc9p+0",
+                                      "rcm": "0x1.ff64321937dc9p+0"}),
+    "band": ("none", "csr", "model", {"none": "0x1.fc9b9618f61e9p+0",
+                                      "rcm": "0x1.0197ac0e9df70p+1"}),
+    "band oracle": ("rcm", "dia", "analytic",
+                    {"none": "0x1.f4512b55469e5p-3",
+                     "rcm": "0x1.f954a4b11eaa6p+0"}),
+    "rmat2^11 oracle": ("none", "hyb", "replay",
+                        {"none": "0x1.0000000000000p+1",
+                         "rcm": "0x1.0000000000000p+1"}),
+    "rmat2^11 model": ("none", "hyb", "model",
+                       {"none": "0x1.fe4d96509bf02p+0",
+                        "rcm": "0x1.faec8caa5d890p+0"}),
+}
+#: fingerprints of the reorder phase's 2^22 band and scrambled band
+BAND_FINGERPRINTS_2_22 = ("c8c7f575e3dde02058de8d1280a73b45",
+                          "26bab240962f5f05cc9f5a93a8b1f343")
 # Granite-8B's attention widths (src/repro/configs/granite_8b.py)
 N_HEADS, N_KV_HEADS, HEAD_DIM = 32, 8, 128
 ATTN_WINDOW = 1024                  # the smoke's own: no config sets one
@@ -335,29 +381,6 @@ FORMAT_KERNELS = {"csr": ["spmv_csr"], "ell": ["spmv_ell"],
                   "csr-seg": ["spmv_csr_seg"]}
 
 
-def banded(n, bandwidth, dev, nnz_per_row=9, seed=0):
-    """The scheme and random stream of the reference's `banded_matrix`:
-    `nnz_per_row` offsets uniform in [-bandwidth, bandwidth] per row
-    (clipped to the matrix), duplicates summed in stream order."""
-    from repro_torch.core.formats import CSR
-    from repro_torch.device import stable_argsort
-
-    rng = np.random.default_rng(seed)
-    rows = np.repeat(np.arange(n, dtype=np.int64), nnz_per_row)
-    offs = rng.integers(-bandwidth, bandwidth + 1, size=rows.shape[0])
-    cols = np.clip(rows + offs, 0, n - 1)
-    vals = rng.uniform(0.5, 1.5, size=rows.shape[0]).astype(np.float32)
-    key = rows * n + cols
-    order = stable_argsort(key, dev)
-    key, rows, cols, vals = key[order], rows[order], cols[order], vals[order]
-    uniq = np.ones(len(key), dtype=bool)
-    uniq[1:] = key[1:] != key[:-1]
-    seg = np.cumsum(uniq) - 1
-    merged = np.zeros(int(seg[-1]) + 1, dtype=np.float32)
-    np.add.at(merged, seg, vals)
-    return CSR.from_coo(rows[uniq], cols[uniq], merged, n, n, device=dev)
-
-
 def blocked_coo(n, n_blocks, seed=0):
     """The scheme and random stream of the test helper `_blocked_matrix`
     (`tests/test_auto_format.py`): `n_blocks` dense 8x128 tiles at
@@ -381,23 +404,34 @@ def close(a, b) -> bool:
     return bool(torch.allclose(a, b, rtol=REAL_RTOL, atol=REAL_ATOL))
 
 
-def run_reorder(log2n, dev, K, T, core, compile_plan, reps):
-    """Scrambled band -> RCM -> DIA, per-call and compiled, against the
-    padded-CSR multiply of the scrambled matrix."""
+def scrambled_band(log2n, dev, T, banded_matrix):
+    """(band, scrambled, seconds): `banded_matrix(2^log2n, 8)` and the
+    same band under the seeded symmetric permutation
+    `default_rng(0).permutation(n)` (`tools/reference_decisions.py`
+    builds the identical matrix with the reference)."""
     n = 1 << log2n
     t0 = time.perf_counter()
-    band = banded(n, 8, dev)
+    band = banded_matrix(n, 8, device=dev)
     perm = np.random.default_rng(0).permutation(n)
     scrambled = T.Reordering(row_perm=perm, col_perm=perm).apply(band)
-    gen_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    r = T.rcm(scrambled)
-    reorder_s = time.perf_counter() - t0
+    return band, scrambled, time.perf_counter() - t0
+
+
+def run_reorder(log2n, dev, K, core, compile_plan, reps, scrambled, gen_s,
+                r, reorder_s):
+    """Scrambled band -> RCM -> DIA, per-call and compiled, against the
+    padded-CSR multiply of the scrambled matrix.  `r` is the RCM of the
+    scrambled band that the compile phase's oracle compile computed,
+    reused rather than computed a fourth time; `reorder_s` is that
+    compile's candidate build (RCM plus applying the permutation)."""
+    n = 1 << log2n
     t0 = time.perf_counter()
     fmt = core.auto_format(scrambled, reordering=r)
     auto_s = time.perf_counter() - t0
     log(f"reorder 2^{log2n}: nnz={scrambled.nnz} gen_s={gen_s:.2f} "
-        f"reorder_s={reorder_s:.2f} auto_format_s={auto_s:.2f} "
+        f"candidates_s={reorder_s:.2f} (the compile phase's RCM plus "
+        f"permutation) "
+        f"auto_format_s={auto_s:.2f} "
         f"stats={r.stats} fmt={type(fmt).__name__}")
     if not check(type(fmt).__name__ == "DIA",
                  f"reorder: auto_format gave {type(fmt).__name__}, not DIA"):
@@ -533,6 +567,255 @@ def run_bell(log2n, dev, K, CSR, core, drivers, cache, reps):
           f"{res.n_iters} vs {plain.n_iters}")
     compare_pagerank("bell", res, plain)
     return {"plan": res.plan, "counts": counts, "bell": bell, "adj": adj}
+
+
+# ---------------------------------------------------------------------------
+# compile: the reference's default plan.compile, scored by the cost model
+# ---------------------------------------------------------------------------
+
+class AnalyzeRecorder:
+    """Keeps every (matrix, `StructureReport`) pair that `plan.compile`
+    analyses while active, so that its candidates' model features can be
+    printed; the compile is unchanged."""
+
+    def __init__(self, structure):
+        self.structure, self.calls = structure, []
+
+    def __enter__(self):
+        self.orig = self.structure.analyze
+
+        def analyze(m, *a, **kw):
+            rep = self.orig(m, *a, **kw)
+            self.calls.append((m, rep))
+            return rep
+        self.structure.analyze = analyze
+        return self
+
+    def __exit__(self, *exc):
+        self.structure.analyze = self.orig
+
+    def by_label(self, tag, plan):
+        """label -> report of each scored candidate, told apart by the
+        analysed matrix's fingerprint: 'none' is the compiled input's
+        (the plan's fingerprint), the one other candidate the one other
+        matrix.  The first report of a matrix is the compile's own (an
+        analytic score analyses it again).  Fails unless the compile
+        analysed exactly one distinct matrix per candidate."""
+        from repro_torch.plan.fingerprint import matrix_fingerprint
+
+        first: dict = {}
+        for m, rep in self.calls:
+            first.setdefault(matrix_fingerprint(m), rep)
+        labels = sorted(plan.predicted)
+        others = [lab for lab in labels if lab != "none"]
+        ok = (len(first) == len(labels) and len(others) <= 1
+              and ("none" not in labels or plan.fingerprint in first))
+        if not check(ok, f"compile {tag}: analysed {len(first)} distinct "
+                         f"matrices for candidates {labels}"):
+            return {}
+        out = {"none": first.pop(plan.fingerprint)} if "none" in labels \
+            else {}
+        out.update(zip(others, first.values()))
+        return out
+
+
+def int_twin(P, plan, gen):
+    """The plan with integer values in its container and layout (same
+    reordering, format and knobs), and that plan's `use_pallas=False`
+    twin: every float32 sum of theirs is exact."""
+    c = plan.container
+    fields = {"DIA": ("data",), "CSR": ("data",),
+              "HYB": ("data", "hvals")}[type(c).__name__]
+    ci = dataclasses.replace(c, **{f: int_values(getattr(c, f),
+                                                 "plus_times", gen)
+                                   for f in fields})
+    kern = dataclasses.replace(P.plan_for_container(ci),
+                               format_name=plan.format_name,
+                               reordering=plan.reordering)
+    return kern, dataclasses.replace(kern, prep=None, use_pallas=False)
+
+
+def show_compile(tag, plan, by_label, features_for, model):
+    """Print a compiled plan's candidates (features of the reports in
+    `by_label`, predicted log2 and GFLOPS), its decision and its stage
+    seconds; check that each model score is 2 ** model(features)
+    exactly."""
+    st = plan.compile_stats
+    labels = sorted(plan.predicted) if plan.predicted else [plan.chosen]
+    for label in labels:
+        pred = plan.predicted.get(label, {})
+        line = f"compile {tag} {label}:"
+        rep = by_label.get(label)
+        if rep is not None and model is not None:
+            f = features_for(rep, plan.threads)
+            yhat = float(model.predict(f[None, :])[0])
+            line += " features=[" + ", ".join(repr(float(v)) for v in f) + \
+                f"] log2_gflops={yhat!r}"
+            if pred.get("predictor") == "model":
+                check(2.0 ** yhat == pred["gflops"],
+                      f"compile {tag} {label}: model score "
+                      f"{pred['gflops']!r} is not 2**{yhat!r}")
+        if pred:
+            line += f" gflops={pred['gflops']!r} ({float(pred['gflops']).hex()})"
+        log(line)
+    log(f"compile {tag}: chosen={plan.chosen} format={plan.format_name} "
+        f"scoring={st['scoring']} " + " ".join(
+            f"{k}={st[k]:.4f}" for k in ("reorder_s", "analyze_s",
+                                          "predict_s", "convert_s",
+                                          "prepare_s") if k in st))
+
+
+def check_decision(tag, plan, pinned):
+    """The reference's decision (and exact scores) on the same matrix."""
+    want = REFERENCE_DECISIONS.get(tag) if pinned else None
+    if want is None:
+        log(f"compile {tag}: no pinned reference decision at this size")
+        return
+    chosen, fmt, scoring, scores = want
+    got = (plan.chosen, plan.format_name, plan.compile_stats["scoring"],
+           {k: float(v["gflops"]).hex() for k, v in plan.predicted.items()})
+    check(got == (chosen, fmt, scoring, scores),
+          f"compile {tag}: decision {got} is not the reference's "
+          f"{(chosen, fmt, scoring, scores)}")
+    log(f"compile {tag}: reference decision {chosen}/{fmt}/{scoring} "
+        f"and scores bit-identical: {got == (chosen, fmt, scoring, scores)}")
+
+
+def run_plan_checks(tag, P, K, plan, dev, gen):
+    """The plan and its integer twin through the kernels, launch counts
+    set to 0 just before and read just after: the integer twin equals
+    its use_pallas=False twin bit for bit, the real plan its own within
+    rtol 1e-5."""
+    n = plan.n_cols
+    kern, plain = int_twin(P, plan, gen)
+    xi = torch.randint(-8, 9, (n,), generator=gen).float().to(dev)
+    x = torch.rand(n, generator=gen).to(dev)
+    K.reset_launch_counts()
+    y = plan.execute(x)
+    yi = kern.execute(xi)
+    sync(dev)
+    counts = K.launch_counts()
+    real_plain = dataclasses.replace(plan, prep=None, use_pallas=False)
+    exact = torch.equal(yi, plain.execute(xi))
+    near = close(y, real_plain.execute(x))
+    check(exact, f"compile {tag}: integer plan differs from its plain twin")
+    check(near, f"compile {tag}: plan differs from its plain twin")
+    for k in FORMAT_KERNELS[plan.format_name]:
+        check(dev.type != "cuda" or counts[k] > 0,
+              f"compile {tag} plan launched {k} no time")
+    ms = spmv_ms(plan, dev)
+    log(f"compile {tag} execute: integer x bit-identical to plain {exact}, "
+        f"real x within rtol {REAL_RTOL} {near}; spmv_ms={ms:.4f}; "
+        f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    return counts
+
+
+def run_compile(args, dev, K, P, core, adjs, band, scrambled, rmat_matrix):
+    """The compile phase: the reference's default `plan.compile` on the
+    main path's FD and R-MAT and the reorder phase's scrambled band,
+    `predictor="oracle"` on the band (analytic) and on R-MAT 2^11
+    (replay), a fresh PlanCache's scoring counters, then `core.spmv`'s
+    pagerank, power_iteration and dense branch through the kernels
+    against their plain paths.  Returns the launch counts and (the band
+    oracle plan's reordering -- the RCM of the band --, its seconds)."""
+    from repro_torch.core import structure
+    from repro_torch.plan.costmodel import default_model, features_for
+
+    cspmv = importlib.import_module("repro_torch.core.spmv")
+
+    model = default_model()
+    check(model is not None, "compile: the shipped cost model did not load")
+    gen = torch.Generator().manual_seed(19)
+    totals: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    band_rcm = None
+    pinned_main = args.log2n == 22
+    pinned_band = args.reorder_log2n == 22
+    cases = [("fd", adjs["fd"], {}, pinned_main),
+             ("rmat", adjs["rmat"], {}, pinned_main),
+             ("band", scrambled, {}, pinned_band),
+             ("band oracle", scrambled, {"predictor": "oracle"},
+              pinned_band)]
+    for tag, m, kw, pinned in cases:
+        t0 = time.perf_counter()
+        with AnalyzeRecorder(structure) as rec:
+            plan = P.compile(m, device=dev, **kw)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        log(f"compile {tag} 2^{m.n_rows.bit_length() - 1}: nnz={m.nnz} "
+            f"options={kw or 'defaults'} wall_s={wall:.2f}")
+        show_compile(tag, plan, rec.by_label(tag, plan), features_for,
+                     model)
+        del rec
+        if "predictor" not in kw:
+            check(plan.compile_stats["scoring"] == "model",
+                  f"compile {tag}: scored by "
+                  f"{plan.compile_stats['scoring']}, not the model")
+        check_decision(tag, plan, pinned)
+        add(run_plan_checks(tag, P, K, plan, dev, gen))
+        if tag == "band oracle":
+            band_rcm = (plan.reordering, plan.compile_stats["reorder_s"])
+        del plan
+
+    # the replay oracle and the cache's split by scoring, on R-MAT 2^11
+    small = rmat_matrix(1 << 11, device=dev)
+    cache = P.PlanCache()
+    for tag, pred in (("rmat2^11 oracle", "oracle"),
+                      ("rmat2^11 model", "model")):
+        plan = cache.get_or_compile(small, predictor=pred, device=dev)
+        show_compile(tag, plan, {}, features_for, None)
+        check_decision(tag, plan, True)
+    st = cache.stats()
+    ok = (st["predictor_compiles"], st["oracle_compiles"]) == (1, 1)
+    check(ok, f"compile cache: predictor/oracle compiles "
+          f"{st['predictor_compiles']}/{st['oracle_compiles']}, not 1/1")
+    log(f"compile cache: predictor_compiles={st['predictor_compiles']} "
+        f"predictor_compile_s={st['predictor_compile_s']} "
+        f"oracle_compiles={st['oracle_compiles']} "
+        f"oracle_compile_s={st['oracle_compile_s']}")
+
+    # core.spmv: pagerank, power_iteration and the dense branch
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    pr = cspmv.pagerank(adjs["fd"], device=dev)
+    lam, v = cspmv.power_iteration(band, torch.ones(band.n_cols, device=dev))
+    dense_n = 1 << 12
+    dm = rmat_matrix(dense_n, device=dev)
+    # integer values: the dense and the sparse sums are exact
+    dm = dataclasses.replace(dm, data=int_values(dm.data, "plus_times", gen))
+    xd = torch.randint(-8, 9, (dense_n,), generator=gen).float().to(dev)
+    yd = cspmv.spmv(dm.to_dense(), xd)
+    sync(dev)
+    counts = K.launch_counts()
+    kern_s = time.perf_counter() - t0
+    add(counts)
+    pr_plain = cspmv.pagerank(adjs["fd"], use_pallas=False, device=dev)
+    lam_p, v_p = cspmv.power_iteration(band, torch.ones(band.n_cols,
+                                                        device=dev),
+                                       use_pallas=False)
+    pr_ok = bool(torch.isfinite(pr).all()) and bool(torch.allclose(
+        pr, pr_plain, rtol=PR_RTOL, atol=0.0))
+    pi_ok = close(v, v_p) and bool(torch.isclose(lam, lam_p, rtol=REAL_RTOL))
+    dense_ok = torch.equal(yd, dm.to_dense() @ xd) and \
+        torch.equal(yd, cspmv.spmv(dm, xd, use_pallas=False))
+    check(pr_ok, "compile: core.spmv.pagerank differs from its plain path")
+    check(pi_ok, "compile: power_iteration differs from its plain path")
+    check(dense_ok, "compile: the dense spmv branch differs from "
+          "CSR.to_dense() @ x or from the sparse product")
+    for k in ("spmv_csr",):
+        check(dev.type != "cuda" or counts[k] > 0,
+              f"compile: core.spmv paths launched {k} no time")
+    log(f"compile core.spmv: pagerank FD 2^{adjs['fd'].n_rows.bit_length() - 1}"
+        f" (32 iterations) within rtol {PR_RTOL} of plain {pr_ok}, sum "
+        f"{float(pr.sum()):.6f}; power_iteration band lam={float(lam):.6f} "
+        f"plain lam={float(lam_p):.6f} ok={pi_ok}; dense 2^12 (integer "
+        f"values) == to_dense() @ x == sparse {dense_ok}; kernels_s={kern_s:.2f} launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    return totals, band_rcm
 
 
 # ---------------------------------------------------------------------------
@@ -1725,9 +2008,11 @@ def overlay_exact(P, D, adj, dev, gen):
         dels = delete_batch(m, max(1, M2_DELETES_2_22 * n >> 22), rng) \
             if sr == "plus_times" else ()
         delta = D.EdgeDelta.from_updates(m, inserts=ins, deletes=dels)
-        ov = P.overlay(P.compile(m, semiring=sr, device=dev), delta,
+        ov = P.overlay(P.compile(m, semiring=sr, reorder="none",
+                                 predictor="none", device=dev), delta,
                        staleness_budget=1.0)
-        fresh = P.compile(ov.materialize(), semiring=sr, device=dev)
+        fresh = P.compile(ov.materialize(), semiring=sr, reorder="none",
+                          predictor="none", device=dev)
         X = x_for(sr, n, gen, dev) if sr != "plus_times" else \
             torch.randint(-3, 4, (n,), generator=gen).float().to(dev)
         X = torch.stack([X, X.roll(1), X.flip(0), X.roll(7)])
@@ -2015,7 +2300,8 @@ def main(argv=None) -> int:
         from repro_torch import serve_graph as SG
         from repro_torch.core import delta as D
         from repro_torch.core.formats import CSR
-        from repro_torch.core.generators import fd_matrix, rmat_matrix
+        from repro_torch.core.generators import (banded_matrix, fd_matrix,
+                                                 rmat_matrix)
         from repro_torch.graph import drivers
         from repro_torch.graph.semiring import SEMIRINGS as SR
         from repro_torch.kernels import _build
@@ -2048,7 +2334,8 @@ def main(argv=None) -> int:
         # path's iterations
         tiny = rmat_matrix(256, device=dev)
         for fmt in ("dia", "bell", "ell", "csr", "hyb"):
-            compile_plan(tiny, format=fmt, device=dev).execute(
+            compile_plan(tiny, format=fmt, reorder="none", predictor="none",
+                         device=dev).execute(
                 torch.ones(256, device=dev))
     else:
         log("device cpu rehearsal: plain versions only, no kernels")
@@ -2132,11 +2419,30 @@ def main(argv=None) -> int:
 
     # -- the reordering, per-call and BELL paths ------------------------------
     plans = {}
-    rr = run_reorder(args.reorder_log2n, dev, K, T, core, compile_plan,
-                     args.reps)
+    band, scrambled, band_s = scrambled_band(args.reorder_log2n, dev, T,
+                                             banded_matrix)
+    fps = (P.matrix_fingerprint(band), P.matrix_fingerprint(scrambled))
+    log(f"reorder band fingerprints band={fps[0]} scrambled={fps[1]}")
+    if args.reorder_log2n == 22:
+        check(fps == BAND_FINGERPRINTS_2_22, "reorder: the 2^22 band's "
+              f"fingerprints {fps} are not {BAND_FINGERPRINTS_2_22}")
+
+    # -- compile: the reference's default plan.compile -----------------------
+    t0 = time.perf_counter()
+    phase_counts["compile"], band_rcm = run_compile(
+        args, dev, K, P, core, adjs, band, scrambled, rmat_matrix)
+    log(f"compile phase_s={time.perf_counter() - t0:.1f}")
+    if band_rcm[0] is None:         # the oracle kept the scrambled order
+        t0 = time.perf_counter()
+        band_rcm = (T.rcm(scrambled), time.perf_counter() - t0)
+    rr = run_reorder(args.reorder_log2n, dev, K, core, compile_plan,
+                     args.reps, scrambled, band_s, *band_rcm)
     if rr is not None:
         plans[("reorder", "dia")] = rr["plan"]
         phase_counts["reorder"] = rr["counts"]
+    del band, scrambled
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     rm = run_rmat_rcm(adjs["rmat"], kern["rmat"]["pagerank"][0], dev, K, T,
                       drivers, cache)
     phase_counts["rmat_rcm"] = rm["counts"]
@@ -2151,7 +2457,8 @@ def main(argv=None) -> int:
             lambda: P.plan_for_container(bell))
     small = CSR.from_coo(*blocked_coo(1024, TILES_PER_1024), 1024, 1024,
                          device=dev)
-    plans[("bell", "small")] = compile_plan(small, format="bell", device=dev)
+    plans[("bell", "small")] = compile_plan(
+        small, format="bell", reorder="none", predictor="none", device=dev)
 
     # -- kernel vs plain -------------------------------------------------------
     plans.update({(fam, name): kern[fam][name][0].plan

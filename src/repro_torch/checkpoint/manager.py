@@ -1,0 +1,157 @@
+"""Read and write the reference's checkpoint layout, for string-keyed
+dict trees of numpy arrays.
+
+Counterpart of the part of `repro.checkpoint.manager` that the shipped
+cost model needs (`plan.serial.save_model` / `load_model`), without JAX
+or the `msgpack` package.  One directory per step:
+
+    ckpt_dir/
+      step_000000123/
+        manifest.msgpack      # step, hosts, codec, tree description and
+                              # one entry per leaf (key, shape, dtype,
+                              # offset, nbytes, shard)
+        shard_00000.bin.zlib  # the leaves' bytes, concatenated in key
+                              # order, zlib level 3
+        COMMITTED             # written last: a step without it is torn
+
+Keys are the reference's paths (`['a']['b']`), so a tree written here
+has the reference's manifest and shard bytes, and one written by the
+reference with its zlib codec (the shipped artifact's) restores here.
+Saves are synchronous and single-host, and keep every step.
+"""
+from __future__ import annotations
+
+import os
+import re
+import zlib
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .msgpack_codec import packb, unpackb
+
+CODEC = "zlib"
+_DICT_KEY = re.compile(r"\['([^']*)'\]")
+
+
+def shard_filename(shard_id: int) -> str:
+    return f"shard_{shard_id:05d}.bin.{CODEC}"
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{path: leaf} of a string-keyed dict tree, paths as the
+    reference's key strings."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if not isinstance(k, str):
+            raise TypeError(f"checkpoint trees take string keys, got {k!r}")
+        path = f"{prefix}['{k}']"
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _treedef(tree: Dict) -> str:
+    """The tree's structure as the reference's manifest records it."""
+    def node(t):
+        if not isinstance(t, dict):
+            return "*"
+        return "{" + ", ".join(f"{k!r}: {node(t[k])}"
+                               for k in sorted(t)) + "}"
+    return f"PyTreeDef({node(tree)})"
+
+
+class CheckpointManager:
+    """Committed-step save and schema-free restore of dict trees."""
+
+    def __init__(self, ckpt_dir: str):
+        self.dir = ckpt_dir
+
+    def save(self, step: int, tree: Dict) -> str:
+        """Write `tree` as committed step `step`; returns the step dir."""
+        step_dir = os.path.join(self.dir, f"step_{step:09d}")
+        os.makedirs(step_dir, exist_ok=True)
+        flat = _flatten(tree)
+        entries: List[Dict] = []
+        payload = bytearray()
+        for key in sorted(flat):
+            leaf = flat[key]
+            buf = leaf.tobytes()
+            entries.append({"key": key, "shape": list(leaf.shape),
+                            "dtype": str(leaf.dtype),
+                            "offset": len(payload), "nbytes": len(buf),
+                            "shard": 0})
+            payload.extend(buf)
+        shard_path = os.path.join(step_dir, shard_filename(0))
+        with open(shard_path + ".tmp", "wb") as f:
+            f.write(zlib.compress(bytes(payload), 3))
+        os.replace(shard_path + ".tmp", shard_path)
+        manifest = {"step": step, "n_hosts": 1, "codec": CODEC,
+                    "treedef": _treedef(tree), "entries": entries}
+        mpath = os.path.join(step_dir, "manifest.msgpack")
+        with open(mpath + ".tmp", "wb") as f:
+            f.write(packb(manifest))
+        os.replace(mpath + ".tmp", mpath)
+        with open(os.path.join(step_dir, "COMMITTED"), "w") as f:
+            f.write(str(step))
+        return step_dir
+
+    def committed_steps(self) -> List[int]:
+        if not os.path.isdir(self.dir):
+            return []
+        return [int(name.split("_")[1]) for name in sorted(os.listdir(self.dir))
+                if name.startswith("step_") and os.path.exists(
+                    os.path.join(self.dir, name, "COMMITTED"))]
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.committed_steps()
+        return steps[-1] if steps else None
+
+    def _step_dir(self, step: Optional[int]) -> Tuple[str, int]:
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
+        return os.path.join(self.dir, f"step_{step:09d}"), step
+
+    def load_manifest(self, step: Optional[int] = None) -> Dict:
+        """The manifest of a committed step (newest when None)."""
+        step_dir, _ = self._step_dir(step)
+        with open(os.path.join(step_dir, "manifest.msgpack"), "rb") as f:
+            return unpackb(f.read())
+
+    def restore_any(self, step: Optional[int] = None) -> Tuple[Dict, int]:
+        """(tree, step) rebuilt from the manifest alone: nested dicts of
+        numpy arrays with the saved dtypes and shapes."""
+        step_dir, step = self._step_dir(step)
+        manifest = self.load_manifest(step)
+        codec = manifest.get("codec", "zstd")
+        if codec != CODEC:
+            raise ValueError(f"checkpoint was written with codec {codec!r}; "
+                             f"this reader has {CODEC!r}")
+        shards: Dict[int, bytes] = {}
+        tree: Dict = {}
+        for e in manifest["entries"]:
+            key = e["key"]
+            parts = _DICT_KEY.findall(key)
+            if "".join(f"['{p}']" for p in parts) != key:
+                raise ValueError(f"restore_any supports string-keyed dict "
+                                 f"trees only; cannot rebuild node {key!r}")
+            sid = e["shard"]
+            if sid not in shards:
+                path = os.path.join(step_dir, shard_filename(sid))
+                with open(path, "rb") as f:
+                    shards[sid] = zlib.decompress(f.read())
+            buf = shards[sid][e["offset"]:e["offset"] + e["nbytes"]]
+            leaf = np.frombuffer(buf, np.dtype(e["dtype"])) \
+                .reshape(e["shape"]).copy()
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = leaf
+        return tree, step
+
+
+__all__ = ["CheckpointManager", "CODEC", "shard_filename"]

@@ -85,6 +85,15 @@ class CSR:
     def row_lengths(self) -> np.ndarray:
         return np.diff(to_numpy(self.indptr))
 
+    def to_dense(self) -> torch.Tensor:
+        """The dense (n_rows, n_cols) matrix on the CSR's device;
+        duplicate coordinates are summed in stream order (`np.add.at`),
+        as the reference sums them."""
+        vals = to_numpy(self.data)
+        out = np.zeros(self.shape, dtype=vals.dtype)
+        np.add.at(out, (_csr_rows(self), to_numpy(self.indices)), vals)
+        return to_tensor(out, self.device)
+
     def apply_delta(self, delta) -> "CSR":
         """This matrix with a `repro_torch.core.delta.EdgeDelta` applied,
         on the same device: deleted coordinates removed structurally,

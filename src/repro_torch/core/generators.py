@@ -1,10 +1,10 @@
 """The paper's two matrix families, byte-identical to the reference's.
 
-Counterpart of `repro.core.generators` for `fd_matrix`, `rmat_edges`
-and `rmat_matrix`: the same numpy random streams in the same order, so
-the same seed gives the same arrays -- including the duplicate
-coordinates `fd_matrix` emits when the grid side degenerates to 1 or 2
-(ROADMAP C1).  Generation is host-side numpy; the CSR lands on `device`.
+Counterpart of `repro.core.generators`: the same numpy random streams
+in the same order, so the same seed gives the same arrays -- including
+the duplicate coordinates `fd_matrix` emits when the grid side
+degenerates to 1 or 2 (ROADMAP C1).  Generation is host-side numpy; the
+CSR lands on `device`.
 """
 from __future__ import annotations
 
@@ -96,5 +96,47 @@ def rmat_matrix(n_rows: int, nnz_per_row: int = 8, dtype=np.float32,
                         n_rows, n_rows, dtype=dtype, device=dev)
 
 
-__all__ = ["fd_matrix", "rmat_edges", "rmat_matrix",
+def banded_matrix(n_rows: int, bandwidth: int, nnz_per_row: int = 9,
+                  dtype=np.float32, seed: int = 0, device=None) -> CSR:
+    """Banded matrix with nonzeros uniform inside |c - r| <= bandwidth
+    (clipped to the matrix), duplicates summed in stream order: the
+    structure-sweep knob between FD-like and R-MAT-like."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), nnz_per_row)
+    offs = rng.integers(-bandwidth, bandwidth + 1, size=rows.shape[0])
+    cols = np.clip(rows + offs, 0, n_rows - 1)
+    vals = rng.uniform(0.5, 1.5, size=rows.shape[0]).astype(dtype)
+    key = rows * n_rows + cols
+    order = stable_argsort(key, dev)
+    key, rows, cols, vals = key[order], rows[order], cols[order], vals[order]
+    uniq = np.ones(len(key), dtype=bool)
+    uniq[1:] = key[1:] != key[:-1]
+    seg = np.cumsum(uniq) - 1
+    mvals = np.zeros(int(seg[-1]) + 1, dtype=dtype)
+    np.add.at(mvals, seg, vals)
+    return CSR.from_coo(rows[uniq], cols[uniq], mvals, n_rows, n_rows,
+                        dtype=dtype, device=dev)
+
+
+def uniform_random_matrix(n_rows: int, nnz_per_row: int = 8,
+                          dtype=np.float32, seed: int = 0,
+                          device=None) -> CSR:
+    """Uniform-random sparse matrix (no power law), duplicates kept:
+    the control case."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), nnz_per_row)
+    cols = rng.integers(0, n_rows, size=rows.shape[0])
+    vals = rng.uniform(0.5, 1.5, size=rows.shape[0]).astype(dtype)
+    return CSR.from_coo(rows, cols, vals, n_rows, n_rows, dtype=dtype,
+                        device=device)
+
+
+def paper_sizes(max_log2_rows: int = 26, min_log2_rows: int = 11):
+    """The paper's size sweep: 2^11 .. 2^26 rows."""
+    return [2 ** k for k in range(min_log2_rows, max_log2_rows + 1)]
+
+
+__all__ = ["fd_matrix", "rmat_edges", "rmat_matrix", "banded_matrix",
+           "uniform_random_matrix", "paper_sizes",
            "RMAT_A", "RMAT_B", "RMAT_C", "RMAT_D"]

@@ -1,9 +1,11 @@
 """Structure metrics of a sparse matrix -- what `plan.choose_format` reads.
 
-Counterpart of `repro.core.structure.analyze`: the same numpy arithmetic
-on the same sampled column stream, so the report -- and therefore the
-format the compiler picks -- is identical to the reference's, before
-and after a reordering (`analyze_reorder`).
+Counterpart of `repro.core.structure`: the same numpy arithmetic on the
+same sampled column stream, so the report -- and therefore the format
+the compiler picks -- is identical to the reference's, before and after
+a reordering (`analyze_reorder`).  `x_access_stream` and
+`reuse_distance_histogram` are the raw stream and its exact LRU stack
+distances, host-side numpy as in the reference.
 """
 from __future__ import annotations
 
@@ -47,6 +49,12 @@ class StructureReport:
 LINE_ELEMS = 8          # 64-byte line of f64 (paper) -- locality window
 RECENT_WINDOW = 64      # lines considered "recent" for temporal locality
 STREAM_WINDOW = 24      # accesses a 16-stream prefetcher can look back over
+
+
+def x_access_stream(csr: CSR) -> np.ndarray:
+    """The exact sequence of x-indices CSR SpMV touches (row-major),
+    int64 on the host."""
+    return to_numpy(csr.indices).astype(np.int64)
 
 
 def analyze(csr: CSR, sample_rows: int | None = 65536,
@@ -195,5 +203,41 @@ def _windowed_reuse(lines: np.ndarray, window: int) -> float:
     return float(np.mean((idx - prev_pos) <= window))
 
 
+def reuse_distance_histogram(lines: np.ndarray):
+    """Exact LRU stack distances via a Fenwick tree (O(m log m)): per
+    access, the number of distinct lines touched since the previous
+    access to the same line (-1 for a cold miss)."""
+    m = lines.size
+    tree = np.zeros(m + 1, dtype=np.int64)
+
+    def bit_add(i, v):
+        i += 1
+        while i <= m:
+            tree[i] += v
+            i += i & (-i)
+
+    def bit_sum(i):  # sum of [0, i)
+        s = 0
+        while i > 0:
+            s += tree[i]
+            i -= i & (-i)
+        return s
+
+    last = {}
+    dists = np.empty(m, dtype=np.int64)
+    for t in range(m):
+        ln = lines[t]
+        p = last.get(ln, -1)
+        if p < 0:
+            dists[t] = -1  # cold miss
+        else:
+            dists[t] = bit_sum(t) - bit_sum(p + 1)
+            bit_add(p, -1)
+        bit_add(t, 1)
+        last[ln] = t
+    return dists
+
+
 __all__ = ["StructureReport", "StructureDelta", "analyze",
-           "analyze_reorder", "LINE_ELEMS"]
+           "analyze_reorder", "x_access_stream", "reuse_distance_histogram",
+           "LINE_ELEMS"]

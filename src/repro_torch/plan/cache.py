@@ -14,9 +14,11 @@ the key like any other.
 The streaming plan lifecycle (`plan.overlay`, `serve_graph`) uses
 `peek`, `chained_key`, `install_overlay`, `swap` and
 `note_delta_recompile`, counted in `overlays`, `swaps` and
-`delta_recompiles`.  The reference's `predictor_*` / `oracle_*`
-compile counters come with candidate scoring (ROADMAP A9), the mesh /
-partition option tokens with sharded plans (A10).
+`delta_recompiles`.  Compiles are also split by the scoring they ran
+(`compile_stats["scoring"]`): 'model' into `predictor_compiles` /
+`predictor_compile_s`, 'replay' and 'analytic' into `oracle_compiles` /
+`oracle_compile_s`.  The mesh / partition option tokens come with
+sharded plans (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -87,6 +89,11 @@ class PlanCache:
         self.evictions = 0
         self.compiles = 0
         self.compile_s = 0.0
+        # compiles by scoring: learned model vs simulation oracle
+        self.predictor_compiles = 0
+        self.predictor_compile_s = 0.0
+        self.oracle_compiles = 0
+        self.oracle_compile_s = 0.0
         # streaming lifecycle: overlaid plans installed, atomic base
         # swaps landed, re-plans forced by a past-budget (or
         # overlay-ineligible) delta
@@ -169,6 +176,14 @@ class PlanCache:
                 self.misses += 1
                 self.compiles += 1
                 self.compile_s += elapsed
+                scoring = (getattr(value, "compile_stats", None)
+                           or {}).get("scoring")
+                if scoring == "model":
+                    self.predictor_compiles += 1
+                    self.predictor_compile_s += elapsed
+                elif scoring in ("replay", "analytic"):
+                    self.oracle_compiles += 1
+                    self.oracle_compile_s += elapsed
                 self._plans[key] = value
                 while len(self._plans) > self.max_plans:
                     self._plans.popitem(last=False)
@@ -212,6 +227,8 @@ class PlanCache:
             self._plans.clear()
             self.hits = self.misses = self.evictions = self.compiles = 0
             self.compile_s = 0.0
+            self.predictor_compiles = self.oracle_compiles = 0
+            self.predictor_compile_s = self.oracle_compile_s = 0.0
             self.overlays = self.swaps = self.delta_recompiles = 0
 
     def stats(self) -> Dict[str, float]:
@@ -221,6 +238,10 @@ class PlanCache:
                     "misses": self.misses, "evictions": self.evictions,
                     "compiles": self.compiles,
                     "compile_s": round(self.compile_s, 6),
+                    "predictor_compiles": self.predictor_compiles,
+                    "predictor_compile_s": round(self.predictor_compile_s, 6),
+                    "oracle_compiles": self.oracle_compiles,
+                    "oracle_compile_s": round(self.oracle_compile_s, 6),
                     "overlays": self.overlays, "swaps": self.swaps,
                     "delta_recompiles": self.delta_recompiles,
                     "hit_rate": self.hits / served if served else 0.0}

@@ -1,19 +1,28 @@
 """`compile` -- turn a matrix into a frozen `SpmvPlan`.
 
-Counterpart of `repro.plan.compiler` for the unscored path:
+Counterpart of `repro.plan.compiler`:
 
-    fingerprint -> reordering -> structure.analyze (of the permuted
-    matrix) -> choose_format -> convert -> prepared kernel layout
-    -> SpmvPlan (on `device`)
+    fingerprint -> candidate reorderings -> per candidate: permute,
+    structure.analyze, choose_format -> drop duplicate candidates ->
+    score (cost model or oracle) -> winner -> convert -> prepared
+    kernel layout -> SpmvPlan (on `device`)
 
-`choose_format` is the reference's rule and `_candidates` its reading
-of `reorder=`, so for the same matrix and options the two packages pick
-the same format and the same reordering.  The port compiles with
-`predictor="none"` and `reorder="none"` by default (the reference's
-defaults are "auto"/"auto"): `reorder="auto"` with `predictor="none"`
-degenerates to "none", as in the reference; scoring more than one
-candidate (ROADMAP A9) and sharded plans (A10) raise
-`NotImplementedError`.  `compile_stats` carries the reference's keys.
+The defaults are the reference's (`reorder="auto"`, `predictor="auto"`):
+'auto' builds the identity and RCM candidates, and 'auto' scores them
+with the shipped cost model (`plan.costmodel`, the port's own copy of
+the artifact), or with the oracle when no model loads -- trace replay
+through the contended-LLC simulator (`parallel.simulate_parallel`) up
+to `REPLAY_NNZ_MAX` nonzeros, the analytic Che model
+(`core.cache_model.analytic_metrics`) above.  Scores model the Sandy
+Bridge machine the reference scores (`machine=SANDY_BRIDGE`), host-side
+in numpy, in the reference's operation order, so the predicted GFLOPS,
+the strict-`>` tie-breaks in sorted candidate order and the
+`REORDER_MARGIN` rule give the reference's decision bit for bit.
+Candidates are permuted where the matrix lies and analysed on the host;
+only the chosen one is converted and laid out on `device`.
+`compile_stats` carries the reference's keys, `["scoring"]` the
+resolved mode ('model', 'replay', 'analytic' or 'none').  Sharded plans
+(mesh=, partition=; ROADMAP A10) raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import time
 from typing import Dict, Optional
 
 from repro_torch.core import structure
+from repro_torch.core.cache_model import SANDY_BRIDGE, MachineModel
 from repro_torch.core.formats import BELL, CSR, DIA, ELL, HYB
 from repro_torch.device import resolve_device
 from repro_torch.graph.semiring import SEMIRINGS, resolve
@@ -29,6 +39,15 @@ from repro_torch.kernels.spmv_csr_seg import WINDOW
 
 from .fingerprint import matrix_fingerprint
 from .plan import SpmvPlan
+
+# 'oracle' scores by trace replay up to this nnz, analytically above
+# (replay is Python-speed: ~5 trace entries per nonzero per sweep).
+REPLAY_NNZ_MAX = 16384
+
+# A reordered candidate must beat the identity ordering by this fraction
+# of predicted throughput: the x gather and y scatter it pays per
+# multiply are not in the stream-level scores.
+REORDER_MARGIN = 0.02
 
 # Power-law detection (the reference's constants): above HYB_MIN_CV an
 # unstructured matrix takes the hybrid row split; between SEG_MIN_CV and
@@ -97,14 +116,15 @@ def _prepare(container, format_name: str, *, bm: int, n_stripes: int,
 
 
 def _candidates(csr: CSR, reorder) -> Dict[str, object]:
-    """label -> Reordering|None for the `reorder=` forms: 'none'/None, a
-    strategy name, a strategy callable, or a concrete Reordering (one
-    candidate each; 'auto', which adds RCM beside 'none' for a scorer to
-    choose between, is resolved by `compile` before this)."""
+    """label -> Reordering|None for the `reorder=` forms: 'auto' (none
+    and rcm), 'none'/None, a strategy name, a strategy callable, or a
+    concrete Reordering."""
     from repro_torch.reorder import STRATEGIES, Reordering
 
     if reorder is None or reorder == "none":
         return {"none": None}
+    if reorder == "auto":
+        return {"none": None, "rcm": STRATEGIES["rcm"](csr)}
     if isinstance(reorder, str):
         return {reorder: STRATEGIES[reorder](csr)}
     if isinstance(reorder, Reordering):
@@ -116,12 +136,121 @@ def _candidates(csr: CSR, reorder) -> Dict[str, object]:
     raise TypeError(f"unsupported reorder argument: {reorder!r}")
 
 
+def _predict(csr: CSR, threads: int, machine: MachineModel,
+             parallel_spec, predictor: str) -> Dict:
+    """Predicted contended-LLC throughput of one candidate's stream
+    ('replay' or 'analytic'; 'auto' picks by nnz)."""
+    if predictor == "auto":
+        predictor = "replay" if csr.nnz <= REPLAY_NNZ_MAX else "analytic"
+    if predictor == "replay":
+        from repro_torch.core.partition import rowblock_balanced
+        from repro_torch.parallel import ParallelSpec, simulate_parallel
+
+        spec = parallel_spec if parallel_spec is not None else ParallelSpec()
+        part = rowblock_balanced(csr, threads)
+        _, m = simulate_parallel(csr, part, machine, spec, sweeps=2)
+        return {"predictor": "replay", "gflops": m.gflops_est(),
+                "time_s": m.time_s, "dram_util": m.dram_util,
+                "l2_mpki": m.l2_mpki_mean}
+    if predictor == "analytic":
+        from repro_torch.core.cache_model import analytic_metrics
+
+        m = analytic_metrics(csr, machine, threads=threads)
+        return {"predictor": "analytic", "gflops": m.gflops,
+                "l2_mpki": m.l2_miss_rate,
+                "dram_util": m.dram_utilization}
+    raise ValueError(f"unknown predictor {predictor!r}")
+
+
+def _resolve_predictor(predictor: str, nnz: int, stats: Dict):
+    """(resolved mode, model or None): 'auto'/'model' -> 'model' when
+    the shipped model loads, else the oracle ('model' then records
+    `model_fallback`); 'oracle' -> 'replay' up to REPLAY_NNZ_MAX nnz,
+    'analytic' above."""
+    model = None
+    if predictor in ("auto", "model"):
+        from .costmodel import default_model
+
+        model = default_model()
+        if model is None:
+            if predictor == "model":
+                stats["model_fallback"] = 1.0
+            predictor = "oracle"
+        else:
+            predictor = "model"
+    if predictor == "oracle":
+        predictor = "replay" if nnz <= REPLAY_NNZ_MAX else "analytic"
+    return predictor, model
+
+
+def _drop_duplicates(ordered, cands, permuted_by, fmt_by):
+    """Drop candidates whose (permuted bytes, format) repeat another's --
+    RCM of an already-banded matrix is the identity -- keeping 'none'
+    first (it needs no x gather or y scatter)."""
+    pref = [lab for lab in ("none",) if lab in cands] + \
+        [lab for lab in ordered if lab != "none"]
+    seen: Dict[object, str] = {}
+    for label in pref:
+        sig = (matrix_fingerprint(permuted_by[label]), fmt_by[label])
+        seen.setdefault(sig, label)
+    keep = set(seen.values())
+    return [lab for lab in ordered if lab in keep]
+
+
+def _score(ordered, predictor, model, report_by, permuted_by, *, threads,
+           machine, parallel_spec, sample_rows) -> Dict[str, Dict]:
+    """label -> predicted record of each candidate, in `ordered` order."""
+    predicted: Dict[str, Dict] = {}
+    if predictor == "model":
+        import numpy as np
+
+        from .costmodel import features_for
+
+        l2b = getattr(parallel_spec, "l2_bytes", None)
+        llcb = getattr(parallel_spec, "llc_bytes", None)
+        feats = []
+        for label in ordered:
+            rep = report_by[label]
+            if rep is None:
+                # a forced format skipped the analysis; the model needs it
+                rep = structure.analyze(permuted_by[label],
+                                        sample_rows=sample_rows)
+                report_by[label] = rep
+            feats.append(features_for(rep, threads, l2_bytes=l2b,
+                                      llc_bytes=llcb, machine=machine))
+        scores = model.predict(np.stack(feats))
+        for label, yhat in zip(ordered, scores):
+            predicted[label] = {"predictor": "model",
+                                "gflops": float(2.0 ** yhat)}
+        return predicted
+    for label in ordered:
+        predicted[label] = _predict(permuted_by[label], threads, machine,
+                                    parallel_spec, predictor)
+    return predicted
+
+
+def _winner(ordered, predicted) -> str:
+    """First best in sorted order (strict >), and a reordered winner
+    must clear 'none' by REORDER_MARGIN."""
+    chosen = ordered[0]
+    for label in ordered[1:]:
+        if predicted[label]["gflops"] > predicted[chosen]["gflops"]:
+            chosen = label
+    if chosen != "none" and "none" in predicted:
+        bar = predicted["none"]["gflops"] * (1.0 + REORDER_MARGIN)
+        if predicted[chosen]["gflops"] <= bar:
+            chosen = "none"
+    return chosen
+
+
 def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
             threads: int = 1,
             mesh=None,
             partition=None,
-            reorder="none",
-            predictor: str = "none",
+            reorder="auto",
+            machine: MachineModel = SANDY_BRIDGE,
+            parallel_spec=None,
+            predictor: str = "auto",
             format: Optional[str] = None,         # noqa: A002
             use_pallas: bool = True,
             semiring: str = "plus_times",
@@ -132,13 +261,21 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
     """Compile a CSR matrix into a frozen `SpmvPlan` on `device` (None:
     the card; pass device="cpu" for the plain versions on the CPU).
 
-    reorder     'none'/None | a strategy name (`reorder.STRATEGIES`) | a
-                strategy callable | a concrete `Reordering`; the plan
-                multiplies the permuted matrix and gathers x / scatters y
-                so callers stay in the original order.  'auto' needs a
-                predictor (ROADMAP A9) and with predictor="none" is 'none'
+    threads     thread count the scores model contention at (and, above
+                1, biases dispersed matrices to 'csr-seg')
+    reorder     'auto' (score 'none' against 'rcm') | 'none'/None | a
+                strategy name (`reorder.STRATEGIES`) | a strategy
+                callable | a concrete `Reordering`; the plan multiplies
+                the permuted matrix and gathers x / scatters y so
+                callers stay in the original order
+    machine / parallel_spec   the simulated machine the scores model
+                (the reference's Sandy Bridge by default) and the
+                replay's geometry (`parallel.ParallelSpec`)
+    predictor   'auto' | 'model' | 'oracle' | 'replay' | 'analytic' |
+                'none' (keep the single candidate; with reorder='auto'
+                it is the identity order)
     format      force 'dia'|'bell'|'ell'|'csr'|'csr-seg'|'hyb'; default
-                reads it off the permuted matrix's structure report
+                reads it off each candidate's permuted structure report
                 (`choose_format`)
     use_pallas  True runs the prepared layout through the kernels; False
                 keeps no layout and runs the container's plain oracle
@@ -152,12 +289,6 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
     """
     if mesh is not None or partition is not None:
         raise _not_in_slice("sharded plans (mesh=, partition=)", "A10")
-    if predictor != "none":
-        raise _not_in_slice(f"predictor={predictor!r}", "A9")
-    if reorder == "auto":
-        # no scoring requested, so no candidate could be chosen by a
-        # score: 'auto' degenerates to the identity order
-        reorder = "none"
     dev = resolve_device(device)
     sr = resolve(semiring)
     if SEMIRINGS.get(sr.name) is not sr:
@@ -175,29 +306,59 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
 
     fp = matrix_fingerprint(matrix)
     stats: Dict[str, object] = {}
+    if predictor == "none" and reorder == "auto":
+        # no scoring requested, so no candidate could be chosen by a
+        # score: 'auto' degenerates to the identity order
+        reorder = "none"
+    predictor, model = _resolve_predictor(predictor, matrix.nnz, stats)
+
     t0 = time.perf_counter()
     cands = _candidates(matrix, reorder)
-    (chosen, reordering), = cands.items()
-    permuted = matrix
+    permuted_by = {label: (r.apply(matrix) if r is not None else matrix)
+                   for label, r in cands.items()}
+    stats["reorder_s"] = time.perf_counter() - t0
+
+    # one (format, reordering) pair per candidate, sorted by name so the
+    # enumeration and every tie-break are deterministic
+    fmt_by: Dict[str, str] = {}
+    report_by: Dict[str, object] = {}
+    t0 = time.perf_counter()
+    for label in sorted(cands):
+        if format is not None:
+            fmt_by[label], report_by[label] = format, None
+        else:
+            rep = structure.analyze(permuted_by[label],
+                                    sample_rows=sample_rows)
+            report_by[label] = rep
+            fmt_by[label] = choose_format(rep, threads=threads,
+                                          semiring_safe=semiring_safe)
+    if format is None:
+        stats["analyze_s"] = time.perf_counter() - t0
+    ordered = sorted(cands, key=lambda lab: (fmt_by[lab], lab))
+    if len(ordered) > 1:
+        ordered = _drop_duplicates(ordered, cands, permuted_by, fmt_by)
+
+    t0 = time.perf_counter()
+    predicted: Dict[str, Dict] = {}
+    if predictor == "none" or len(ordered) == 1:
+        chosen = ordered[0]
+        stats["scoring"] = "none"
+    else:
+        predicted = _score(ordered, predictor, model, report_by,
+                           permuted_by, threads=threads, machine=machine,
+                           parallel_spec=parallel_spec,
+                           sample_rows=sample_rows)
+        chosen = _winner(ordered, predicted)
+        stats["scoring"] = predictor
+    stats["predict_s"] = time.perf_counter() - t0
+
+    reordering, permuted = cands[chosen], permuted_by[chosen]
+    report, format_name = report_by[chosen], fmt_by[chosen]
     if reordering is not None:
-        permuted = reordering.apply(matrix)
         # the gather / scatter indices go to the card now, not in the
         # first execute
         reordering.index("col_perm", dev)
         reordering.index("inv_row_perm", dev)
-    stats["reorder_s"] = time.perf_counter() - t0
-
-    report = None
-    if format is None:
-        t0 = time.perf_counter()
-        report = structure.analyze(permuted, sample_rows=sample_rows)
-        format_name = choose_format(report, threads=threads,
-                                    semiring_safe=semiring_safe)
-        stats["analyze_s"] = time.perf_counter() - t0
-    else:
-        format_name = format
-    stats["scoring"] = "none"
-    stats["predict_s"] = 0.0
 
     t0 = time.perf_counter()
     container = convert(permuted, format_name, fill=sr.pad_value,
@@ -213,8 +374,8 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
         fingerprint=fp, format_name=format_name, container=container,
         prep=prep, device=dev, reordering=reordering, report=report,
         csr=permuted.to(dev) if keep_csr else None, threads=threads,
-        use_pallas=use_pallas, semiring=sr.name, chosen=chosen,
-        compile_stats=stats)
+        use_pallas=use_pallas, semiring=sr.name, predicted=predicted,
+        chosen=chosen, compile_stats=stats)
 
 
 def plan_for_container(matrix) -> SpmvPlan:
@@ -234,4 +395,5 @@ def plan_for_container(matrix) -> SpmvPlan:
 
 
 __all__ = ["compile", "choose_format", "convert", "plan_for_container",
-           "HYB_MIN_CV", "SEG_MIN_CV", "SEMIRING_FORMATS", "FORMATS"]
+           "HYB_MIN_CV", "SEG_MIN_CV", "SEMIRING_FORMATS", "FORMATS",
+           "REPLAY_NNZ_MAX", "REORDER_MARGIN"]

@@ -30,14 +30,16 @@ or an ineligible delete arrives; then the materialised matrix is
 re-planned and swapped in atomically (`PlanCache.swap`).  Cache keys
 chain fingerprints (`fingerprint.chain_fingerprint`), so no generation
 re-hashes the base matrix.  The reference's `interpret=` argument is
-dropped, as in `SpmvPlan`; `address_trace` waits for the telemetry
-slice (ROADMAP A9).
+dropped, as in `SpmvPlan`.  `address_trace` prices the delta pass on
+the simulated CPU as a column-sorted COO stream after the base plan's
+trace (`telemetry.hierarchy.overlay_address_trace`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.delta import EdgeDelta
@@ -72,6 +74,7 @@ class OverlaidPlan:
     staleness_budget: float = DEFAULT_STALENESS_BUDGET
     _pass: Any = dataclasses.field(default=None, repr=False)
     _materialized: Any = dataclasses.field(default=None, repr=False)
+    _traces: Dict = dataclasses.field(default_factory=dict, repr=False)
 
     # -- geometry / plan-shape delegation -----------------------------------
 
@@ -184,6 +187,23 @@ class OverlaidPlan:
         if self.delta.nnz == 0:
             return Y
         return self.delta_pass(Y, self.base._input(X))
+
+    def address_trace(self, machine):
+        """The base plan's trace, then the delta pass priced as a
+        column-sorted COO stream (ascending x gathers), in the base
+        plan's permuted coordinates; cached per machine."""
+        if machine not in self._traces:
+            from repro_torch.telemetry.hierarchy import overlay_address_trace
+
+            rows, cols = self.delta.rows, self.delta.cols
+            if self.base.reordering is not None:
+                irp = np.asarray(self.base.reordering.inv_row_perm)
+                icp = np.asarray(self.base.reordering.inv_col_perm)
+                rows, cols = irp[rows], icp[cols]
+            self._traces[machine] = overlay_address_trace(
+                self.base.csr, self.base.format_name, rows, cols, machine,
+                container=self.base.container)
+        return self._traces[machine]
 
     def summary(self) -> str:
         return (f"OverlaidPlan[{self.fingerprint[:8]}] "

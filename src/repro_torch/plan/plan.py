@@ -19,10 +19,13 @@ CPU plan.
                        `execute` bit for bit); the container's plain
                        oracle over the whole batch on a
                        `use_pallas=False` plan;
-  * `power_iteration`  repeated `execute` with normalisation.
+  * `power_iteration`  repeated `execute` with normalisation;
+  * `address_trace(machine)`  the SpMV demand-address trace of the
+                       planned (permuted) matrix on a simulated CPU
+                       (`telemetry.hierarchy.format_address_trace`),
+                       built on the host and cached per machine.
 
-Sharded plans (ROADMAP A10) and address traces (the telemetry slice)
-wait for their slices.
+Sharded plans (ROADMAP A10) wait for their slice.
 """
 from __future__ import annotations
 
@@ -83,8 +86,12 @@ class SpmvPlan:
     threads: int = 1
     use_pallas: bool = True          # False: container oracle, no kernels
     semiring: str = "plus_times"
+    predicted: Dict[str, Dict] = dataclasses.field(default_factory=dict)
     chosen: str = "none"             # scored candidate ("none": unscored)
     compile_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # machine -> address trace, filled by `address_trace`
+    _traces: Dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
 
     @property
     def n_rows(self) -> int:
@@ -153,12 +160,32 @@ class SpmvPlan:
             x = y / torch.clamp(lam, min=1e-30)
         return lam, x
 
+    def address_trace(self, machine):
+        """The SpMV demand-address trace (int64 line ids) of the planned
+        (permuted) matrix as `machine`'s cores issue it, per the plan's
+        format: a 'hyb' plan's trace is the light row-major stream then
+        the container's column-sorted heavy stream, every other format
+        the flat CSR stream.  Built on the host (a card plan's arrays
+        are copied once) and cached per machine."""
+        if self.csr is None:
+            raise ValueError("plan was compiled with keep_csr=False; "
+                             "no CSR retained for trace replay")
+        if machine not in self._traces:
+            from repro_torch.telemetry.hierarchy import format_address_trace
+
+            self._traces[machine] = format_address_trace(
+                self.csr, self.format_name, machine,
+                container=self.container)
+        return self._traces[machine]
+
     def summary(self) -> str:
         r = self.reordering.strategy if self.reordering is not None \
             else "none"
+        gf = self.predicted.get(self.chosen, {}).get("gflops")
+        gf_s = f" pred={gf:.2f}GF" if gf is not None else ""
         sr_s = "" if self.semiring == "plus_times" else f" sr={self.semiring}"
         return (f"SpmvPlan[{self.fingerprint[:8]}] fmt={self.format_name}"
-                f"{sr_s} reorder={r} threads={self.threads}")
+                f"{sr_s} reorder={r} threads={self.threads}{gf_s}")
 
 
 __all__ = ["SpmvPlan", "container_spmv"]

@@ -68,7 +68,11 @@ class GraphEngineConfig:
                                     # drains the queue every step
     max_plans: int = 64             # plan-cache LRU capacity
     reorder: str = "none"           # compile option for every served plan
-    predictor: str = "none"         # candidate scoring ('none' only here)
+    predictor: str = "none"         # candidate scoring of served plans
+                                    # ('none' keeps the blocking drivers'
+                                    # cache keys; 'model' scores
+                                    # reorder='auto' fleets by the
+                                    # shipped cost model)
     use_pallas: bool = True         # False: the containers' plain oracles
     device: object = None           # None: the card; "cpu": plain versions
     max_iters_default: int = 256    # per-request iteration cap

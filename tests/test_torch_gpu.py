@@ -115,8 +115,8 @@ def test_segmented_kernel_on_rmat_windows(cuda, window):
     x = torch.rand(1 << 14, device=cuda)
     got = run(prep, x, sr)
     assert torch.equal(run(prep, x, sr), got)
-    plain = tcompile(csr, format="hyb", use_pallas=False,
-                     device=cuda).execute(x)
+    plain = tcompile(csr, format="hyb", use_pallas=False, reorder="none",
+                     predictor="none", device=cuda).execute(x)
     torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6)
 
 
@@ -132,15 +132,15 @@ def test_kernel_real_valued_plus_times_within_tolerance(cuda, fmt):
     prep, run = _layouts(fmt, csr, sr)
     x = torch.rand(4096, device=cuda)
     got = run(prep, x, sr)
-    plain = tcompile(csr, format=fmt, use_pallas=False,
-                     device=cuda).execute(x)
+    plain = tcompile(csr, format=fmt, use_pallas=False, reorder="none",
+                     predictor="none", device=cuda).execute(x)
     torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6)
 
 
 def test_each_wrapper_counts_only_its_launches(cuda):
     csr = port_int_operands("rmat", 256, 1, "plus_times", device=cuda)[0]
     reset_launch_counts()
-    p = tcompile(csr, device=cuda)                       # hyb
+    p = tcompile(csr, reorder="none", predictor="none", device=cuda)  # hyb
     p.execute(torch.ones(256, device=cuda))
     assert launch_counts() == {"spmv_dia": 0, "spmv_ell": 1, "spmv_csr": 0,
                                "spmv_csr_seg": 1, "spmv_bell": 0,
@@ -312,7 +312,8 @@ def test_execute_many_replays_on_the_card(cuda):
                            (fd_matrix, "csr", "spmv_csr")):
         m = gen(1 << 14, device=cuda)
         for use_pallas in (True, False):
-            p = tcompile(m, format=fmt, use_pallas=use_pallas, device=cuda)
+            p = tcompile(m, format=fmt, use_pallas=use_pallas,
+                         reorder="none", predictor="none", device=cuda)
             reset_launch_counts()
             Y = p.execute_many(X)
             assert launch_counts()[kern] == (4 if use_pallas else 0)
@@ -338,8 +339,57 @@ def test_bell_and_reordered_plans_on_the_card(cuda):
     scrambled = band.permute(p, p)
     plan = tcompile(scrambled, reorder=rcm(scrambled), device=cuda)
     xt = torch.from_numpy(x).to(cuda)
-    assert torch.equal(plan.execute(xt),
-                       tcompile(scrambled, device=cuda).execute(xt))
+    assert torch.equal(plan.execute(xt), tcompile(
+        scrambled, reorder="none", predictor="none",
+        device=cuda).execute(xt))
+
+
+# ---------------------------------------------------------------------------
+# default-compiled plans: scored by the cost model, run on the card
+# ---------------------------------------------------------------------------
+
+PLAN_KERNELS = {"dia": ("spmv_dia",), "csr": ("spmv_csr",),
+                "hyb": ("spmv_ell", "spmv_csr_seg")}
+
+
+@pytest.mark.parametrize("family", ["fd", "rmat", "scrambled"])
+def test_default_compiled_plans_run_their_kernels(cuda, family):
+    """`compile(m)` with the reference's defaults at 2^16 (cost-model
+    scoring of 'none' against 'rcm'): the card plan decides as its CPU
+    twin does, launches its format's kernels once per execute and, on
+    integer values, equals its `use_pallas=False` twin and the CPU plan
+    bit for bit; its address trace is the CPU plan's."""
+    from repro_torch.core.cache_model import SANDY_BRIDGE
+    from repro_torch.core.generators import (banded_matrix, fd_matrix,
+                                             rmat_matrix)
+
+    n = 1 << 16
+    if family == "scrambled":
+        perm = np.random.default_rng(0).permutation(n)
+        m = banded_matrix(n, 8, device=cuda).permute(perm, perm)
+    else:
+        m = (fd_matrix if family == "fd" else rmat_matrix)(n, device=cuda)
+    gen = torch.Generator().manual_seed(5)
+    m = dataclasses.replace(m, data=torch.randint(
+        1, 9, (m.nnz,), generator=gen).float().to(cuda))
+    p = tcompile(m, device=cuda)
+    cpu = tcompile(m.to("cpu"), device="cpu")
+    assert p.compile_stats["scoring"] == "model"
+    assert (p.chosen, p.format_name, p.predicted) == \
+        (cpu.chosen, cpu.format_name, cpu.predicted)
+    x = torch.randint(-8, 9, (n,), generator=gen).float()
+    reset_launch_counts()
+    y = p.execute(x.to(cuda))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert {k for k, v in counts.items() if v} == \
+        set(PLAN_KERNELS[p.format_name])
+    assert all(counts[k] == 1 for k in PLAN_KERNELS[p.format_name])
+    plain = dataclasses.replace(p, prep=None, use_pallas=False)
+    assert torch.equal(y, plain.execute(x.to(cuda)))
+    assert torch.equal(y.cpu(), cpu.execute(x))
+    assert np.array_equal(p.address_trace(SANDY_BRIDGE),
+                          cpu.address_trace(SANDY_BRIDGE))
 
 
 # ---------------------------------------------------------------------------
@@ -639,7 +689,7 @@ def test_overlaid_plan_equals_its_materialization_on_the_card(
     if sr_name == "min_plus":
         x[::97] = np.inf
     delta = _card_delta(csr, sr_name, 6)
-    kw = dict(format=fmt, semiring=sr_name)
+    kw = dict(format=fmt, semiring=sr_name, reorder="none", predictor="none")
     ov = overlay(tcompile(csr, device=cuda, **kw), delta,
                  staleness_budget=1.0)
     fresh = tcompile(ov.materialize(), device=cuda, **kw)

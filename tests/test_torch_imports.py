@@ -1,13 +1,14 @@
 """The port stands alone: no module of `repro_torch`, and not the chip
-smoke script, imports JAX or the reference package."""
+smoke script, imports JAX, the reference package or `msgpack` (the card's
+machine has none of them), and the port reads its own data files."""
 import re
 from pathlib import Path
 
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|repro|msgpack)(\.|\s|$)", re.MULTILINE)
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
 
@@ -38,6 +39,45 @@ SLICE_MODULES = {
     "repro_torch.serve_graph.scheduler": ("GraphScheduler",
                                           "RunningRequest"),
     "repro_torch.serve_graph.engine": ("GraphEngine", "GraphEngineConfig"),
+    # the scoring slice
+    "repro_torch.core.generators": ("banded_matrix", "uniform_random_matrix",
+                                    "paper_sizes"),
+    "repro_torch.core.spmv": ("power_iteration", "pagerank"),
+    "repro_torch.core.structure": ("x_access_stream",
+                                   "reuse_distance_histogram"),
+    "repro_torch.core.cache_model": (
+        "MachineModel", "SANDY_BRIDGE", "CacheMetrics", "x_line_popularity",
+        "MatrixProfile", "profile_of", "profile_fd", "profile_rmat",
+        "analytic_metrics", "analytic_metrics_from_profile",
+        "table1_capacity", "simulate_exact"),
+    "repro_torch.core.partition": ("rowblock_equal", "rowblock_balanced",
+                                   "nnz_split", "col_stripes",
+                                   "sort_rows_by_nnz"),
+    "repro_torch.telemetry.events": ("register_event", "EventCounters",
+                                     "L2_DEMAND_MISS", "STREAM_FILL"),
+    "repro_torch.telemetry.hierarchy": (
+        "SetAssocCache", "SequentialPrefetcher", "VictimCache", "MissCache",
+        "StreamBuffers", "CacheLevel", "Hierarchy", "HierarchySpec",
+        "spmv_address_trace", "hyb_address_trace", "format_address_trace",
+        "overlay_address_trace"),
+    "repro_torch.telemetry.topdown": ("stage_cycles", "machine_stages",
+                                      "topdown_tree", "topdown_summary",
+                                      "STAGE_FIELDS", "COMPUTE_CPN"),
+    "repro_torch.parallel.engine": ("ParallelSpec", "partitioned_traces",
+                                    "nnz_partitioned_traces",
+                                    "replay_parallel"),
+    "repro_torch.parallel.scaling": ("ParallelMetrics", "parallel_metrics",
+                                     "simulate_parallel"),
+    "repro_torch.checkpoint.manager": ("CheckpointManager",),
+    "repro_torch.checkpoint.msgpack_codec": ("packb", "unpackb"),
+    "repro_torch.plan.costmodel": (
+        "FEATURE_NAMES", "features_for", "CostModel", "fit", "model_bytes",
+        "model_digest", "LabelPoint", "label_matrix", "run_label_cell",
+        "pick_winner", "evaluate", "save_corpus", "load_corpus",
+        "default_model", "set_default_model"),
+    "repro_torch.plan.serial": ("model_state", "model_from_state",
+                                "save_model", "load_model"),
+    "repro_torch.plan.compiler": ("REPLAY_NNZ_MAX", "REORDER_MARGIN"),
 }
 
 
@@ -51,6 +91,21 @@ def test_streaming_and_serving_modules(module):
     assert (REPO / "src" / (module.replace(".", "/") + ".py")) in FILES
 
 
+def test_port_reads_its_own_cost_model_copy():
+    """The shipped model and corpus the port loads lie under
+    `repro_torch/plan/_data/`, byte-identical to the reference's."""
+    from repro_torch.plan import costmodel
+
+    own = REPO / "src" / "repro_torch" / "plan" / "_data"
+    assert Path(costmodel.DEFAULT_MODEL_DIR).resolve() == own / "costmodel"
+    ref = REPO / "src" / "repro" / "plan" / "_data"
+    files = sorted(p.relative_to(ref) for p in ref.rglob("*") if p.is_file())
+    assert files and files == sorted(p.relative_to(own)
+                                     for p in own.rglob("*") if p.is_file())
+    assert all((own / f).read_bytes() == (ref / f).read_bytes()
+               for f in files)
+
+
 def test_port_imports_without_jax_loaded():
     """Importing every port module in a fresh interpreter loads neither
     jax nor repro."""
@@ -61,8 +116,8 @@ def test_port_imports_without_jax_loaded():
             "for m in pkgutil.walk_packages(repro_torch.__path__, "
             "'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'repro.')) or m == 'repro']\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'repro', "
+            "'msgpack') or m.startswith(('jax.', 'repro.', 'msgpack.'))]\n"
             "assert not bad, bad\n")
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,

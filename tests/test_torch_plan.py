@@ -3,7 +3,8 @@
 For the same matrix and options the port picks the same format, the
 same candidate and the same scoring mode, and its cache keys are the
 reference's strings.  Entry points default to the card and refuse to
-run without one; options outside this slice refuse loudly.
+run without one; sharded plans (ROADMAP A10) refuse loudly.  The
+scoring itself is held to the reference in `test_torch_scoring.py`.
 """
 import numpy as np
 import pytest
@@ -63,12 +64,13 @@ def test_forced_format_matches_reference_execute(fmt):
     want = np.asarray(rplan.compile(ref_csr, format=fmt, reorder="none",
                                     predictor="none").execute(
         jnp.asarray(x), interpret=True))
-    tp = tplan.compile(port_csr(ref_csr), format=fmt, device="cpu")
+    tp = tplan.compile(port_csr(ref_csr), format=fmt, reorder="none",
+                       predictor="none", device="cpu")
     assert tp.report is None and "analyze_s" not in tp.compile_stats
     assert np.array_equal(tp.execute(x).numpy(), want)
     # the plain container path computes the same integer-valued product
     plain = tplan.compile(port_csr(ref_csr), format=fmt, use_pallas=False,
-                          device="cpu")
+                          reorder="none", predictor="none", device="cpu")
     assert plain.prep is None
     assert np.array_equal(plain.execute(x).numpy(), want)
 
@@ -81,7 +83,8 @@ def test_execute_many_matches_reference_and_execute(sr_name, family):
                   for s in (7, 8, 9)])
     p = rplan.compile(ref_csr, reorder="none", predictor="none",
                       semiring=sr_name)
-    tp = tplan.compile(port_csr(ref_csr), semiring=sr_name, device="cpu")
+    tp = tplan.compile(port_csr(ref_csr), reorder="none", predictor="none",
+                       semiring=sr_name, device="cpu")
     want = np.asarray(p.execute_many(jnp.asarray(X)))
     got = tp.execute_many(X).numpy()
     assert got.shape == (3, 256) and np.array_equal(got, want)
@@ -187,8 +190,8 @@ def test_power_iteration_matches_reference():
     lam, v = rplan.compile(ref, reorder="none",
                            predictor="none").power_iteration(
         jnp.asarray(x0), n_iters=8)
-    tlam, tv = tplan.compile(port_csr(ref), device="cpu").power_iteration(
-        x0, n_iters=8)
+    tlam, tv = tplan.compile(port_csr(ref), reorder="none", predictor="none",
+                             device="cpu").power_iteration(x0, n_iters=8)
     np.testing.assert_allclose(float(tlam), float(lam), rtol=1e-6)
     np.testing.assert_allclose(tv.numpy(), np.asarray(v), rtol=1e-5,
                                atol=1e-7)
@@ -216,8 +219,6 @@ def test_plan_refuses_x_on_another_device():
 
 
 @pytest.mark.parametrize("opts,item", [
-    ({"predictor": "auto"}, "A9"), ({"predictor": "model"}, "A9"),
-    ({"reorder": "auto", "predictor": "oracle"}, "A9"),
     ({"mesh": object()}, "A10"), ({"partition": object()}, "A10")])
 def test_options_outside_the_slice_raise(opts, item):
     m = tg.fd_matrix(64, device="cpu")

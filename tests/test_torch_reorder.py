@@ -303,7 +303,7 @@ def test_compile_reorder_matches_reference(matrix, kind):
     assert rplan.PlanCache.key_for(ref, reorder=ropt, predictor="none") == \
         tplan.PlanCache.key_for(port, reorder=topt, predictor="none")
     p = rplan.compile(ref, reorder=ropt, predictor="none")
-    tp = tplan.compile(port, reorder=topt, device="cpu")
+    tp = tplan.compile(port, reorder=topt, predictor="none", device="cpu")
     assert (tp.format_name, tp.chosen, tp.summary()) == \
         (p.format_name, p.chosen, p.summary())
     assert list(tp.compile_stats) == list(p.compile_stats)
@@ -324,18 +324,24 @@ def test_compile_reorder_matches_reference(matrix, kind):
 def test_scrambled_banded_compiles_to_dia_only_after_rcm():
     ref = _scrambled_banded(1 << 12)
     port = port_csr(ref)
-    assert tplan.compile(port, device="cpu").format_name == \
+    assert tplan.compile(port, reorder="none", predictor="none",
+                         device="cpu").format_name == \
         rplan.compile(ref, reorder="none", predictor="none").format_name \
         != "dia"
     tp = tplan.compile(port, reorder="rcm", device="cpu")
     assert tp.format_name == "dia" and tp.chosen == "rcm"
     assert tp.report.kind == "banded"
     # 'auto' without a predictor is the identity order, as in the
-    # reference; scoring two candidates waits for the predictors (A9)
-    assert tplan.compile(port, reorder="auto",
+    # reference; with one, the scored decision is the reference's
+    assert tplan.compile(port, reorder="auto", predictor="none",
                          device="cpu").reordering is None
-    with pytest.raises(NotImplementedError, match="A9"):
-        tplan.compile(port, reorder="auto", predictor="auto", device="cpu")
+    for predictor in ("auto", "oracle"):
+        p = rplan.compile(ref, reorder="auto", predictor=predictor)
+        tp = tplan.compile(port, reorder="auto", predictor=predictor,
+                           device="cpu")
+        assert (tp.chosen, tp.format_name, tp.compile_stats["scoring"],
+                tp.predicted) == (p.chosen, p.format_name,
+                                  p.compile_stats["scoring"], p.predicted)
 
 
 def test_callable_strategy_compiles_but_keys_by_its_module():

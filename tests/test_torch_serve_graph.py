@@ -301,9 +301,8 @@ def test_admission_and_coalescing_match_reference(scenario):
 
 def test_drain_compile_queue_admits_in_one_step():
     """compiles_per_step=None compiles every queued plan the step it is
-    queued (the reference pairs it with model-scored compiles, which
-    wait for ROADMAP A9 here; the drain itself does not depend on the
-    scoring)."""
+    queued (the reference pairs it with model-scored compiles; the
+    drain itself does not depend on the scoring)."""
     paced = _both(_drain, 1)
     drain = _both(_drain, None)
     assert drain["queued"] == 0 and paced["queued"] > 0
@@ -312,11 +311,43 @@ def test_drain_compile_queue_admits_in_one_step():
         {r: v.values.tobytes() for r, v in paced["results"].items()}
 
 
-@pytest.mark.skip(reason="waits for candidate scoring (ROADMAP A9): the "
-                  "port compiles with predictor='none' only, and the "
-                  "PlanCache's predictor_* / oracle_* counters come with it")
+def _fleet(side, **over):
+    eng = side.engine(_graphs(), **over)
+    for i in range(4):
+        eng.submit(side.sg.AnalyticRequest(i, "fd" if i % 2 else "rmat",
+                                           "bfs", sources=(i,)))
+    eng.submit(side.sg.AnalyticRequest(4, "rmat", "pagerank",
+                                       params={"tol": 1e-6}))
+    out = eng.run()
+    st = eng.plan_cache.stats()
+    split = {k: st[k] for k in ("compiles", "predictor_compiles",
+                                "oracle_compiles")}
+    plans = sorted((v.chosen, v.format_name, v.compile_stats["scoring"])
+                   for v in eng.plan_cache._plans.values())
+    return _summary(eng, out, split=split, plans=plans)
+
+
 def test_model_scored_serving_matches_oracle_bitwise():
-    """Counterpart of tests/test_serve_graph.py's case of the same name."""
+    """Counterpart of tests/test_serve_graph.py's case of the same name:
+    predictor='model' (queue drained every step) serves bit-identical
+    results to the replay-scored oracle, scoring picks the reference's
+    plans, and the cache splits its compiles by scoring as the
+    reference's does."""
+    outs = {}
+    for mode, budget in (("model", None), ("replay", 1)):
+        kw = dict(reorder="auto", predictor=mode, compiles_per_step=budget)
+        a, b = _fleet(REF, **kw), _fleet(PORT, **kw)
+        assert b["log"] == a["log"] and b["stats"] == a["stats"]
+        assert (b["split"], b["plans"]) == (a["split"], a["plans"])
+        _assert_same_results(a["results"], b["results"])
+        outs[mode] = b
+    m, o = outs["model"], outs["replay"]
+    assert {r: v.values.tobytes() for r, v in m["results"].items()} == \
+        {r: v.values.tobytes() for r, v in o["results"].items()}
+    assert m["split"]["predictor_compiles"] == m["split"]["compiles"] > 0
+    assert m["split"]["oracle_compiles"] == 0
+    assert o["split"]["oracle_compiles"] == o["split"]["compiles"] > 0
+    assert o["split"]["predictor_compiles"] == 0
 
 
 # ---------------------------------------------------------------------------

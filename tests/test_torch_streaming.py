@@ -297,7 +297,8 @@ def _counter_trace(P, D, adj, compile_kw):
     out.append(cache.invalidate(swap_key.split("|")[0]))
     cache.clear()
     snaps.append(cache.stats())
-    keep = ("plans", "hits", "misses", "evictions", "compiles", "overlays",
+    keep = ("plans", "hits", "misses", "evictions", "compiles",
+            "predictor_compiles", "oracle_compiles", "overlays",
             "swaps", "delta_recompiles", "hit_rate")
     return out, [{k: s[k] for k in keep} for s in snaps]
 
@@ -478,15 +479,41 @@ def test_overlay_under_a_reordered_plan_keeps_the_original_order():
         ov.materialize(), device="cpu", **OPTS).execute(xt))
 
 
-@pytest.mark.skip(reason="waits for the telemetry slice (ROADMAP A9): "
-                  "OverlaidPlan.address_trace prices the delta pass on "
-                  "the cache model, which the port does not have yet")
-def test_overlay_address_trace_extends_base():
-    """Counterpart of tests/test_streaming.py's case of the same name."""
+@pytest.mark.parametrize("fmt,reorder", [("csr", "none"), ("hyb", "none"),
+                                          ("csr", "rcm")])
+def test_overlay_address_trace_extends_base(fmt, reorder):
+    """Counterpart of tests/test_streaming.py's case of the same name:
+    the overlaid trace is the base plan's, then the column-sorted delta
+    pass (ascending x gathers); an empty delta leaves the base trace.
+    Both traces equal the reference's, under a reordered plan too."""
+    from repro.core.cache_model import SANDY_BRIDGE as R_SB
+    from repro_torch.core.cache_model import SANDY_BRIDGE as T_SB
+
+    ref, port = _pair(128, seed=3)
+    kw = dict(format=fmt, reorder=reorder, predictor="none")
+    traces = []
+    for P, D, m, dev, sb in ((rplan, rdelta, ref, {}, R_SB),
+                             (tplan, tdelta, port, {"device": "cpu"}, T_SB)):
+        p = P.compile(m, **kw, **dev)
+        rng = np.random.default_rng(9)
+        d = D.EdgeDelta.from_updates(m, inserts=[
+            (r, c, 1.0) for r, c in fresh_coords(m, 6, rng)])
+        ov = roverlay.overlay(p, d) if P is rplan else toverlay.overlay(p, d)
+        empty = (roverlay if P is rplan else toverlay).overlay(
+            p, D.EdgeDelta.empty(m.n_rows, m.n_cols))
+        traces.append((p.address_trace(sb), ov.address_trace(sb),
+                       empty.address_trace(sb), d.nnz))
+    (rb, rov, _, _), (tb, tov, tempty, k) = traces
+    assert np.array_equal(tb, rb) and np.array_equal(tov, rov)
+    assert np.array_equal(tov[:len(tb)], tb) and len(tov) > len(tb)
+    xg = tov[len(tb):len(tb) + 4 * k][3::4]
+    assert np.all(np.diff(xg) >= 0)
+    assert np.array_equal(tempty, tb)
 
 
-@pytest.mark.skip(reason="waits for the telemetry slice (ROADMAP A9): "
-                  "plan_cache_report is part of repro.telemetry.report")
+@pytest.mark.skip(reason="needs the port of repro.telemetry.report "
+                  "(plan_cache_report), which follows the sweep runner "
+                  "in ROADMAP A9")
 def test_plan_cache_report_renders_pre_streaming_stats():
     """Counterpart of tests/test_streaming.py's case of the same name."""
 
