@@ -155,7 +155,47 @@ kernels/csrc/` and then runs these phases, one output line per step:
            overlay installation, re-keying), the lineages' staleness,
            overlay installation against the re-plans' compile seconds,
            the PageRank delta pass against its base SpMV, warm against
-           cold iterations after M1, and the phase's peak memory.
+           cold iterations after M1, and the phase's peak memory;
+  sweep    the paper's measurement grids through `telemetry.sweep` and
+           the sharded runner, the cells spread over up to 8 spawned
+           worker processes (each its own CUDA context), matrices made
+           on the card: the headline `run_sweep(log2ns=(12, 14, 16))`
+           with the baseline hierarchy, the five §V `MECHANISMS` at
+           2^14, `scaling_sweep` at 2^12 over 1, 2, 4 and 8 threads
+           (balanced partitions), and `graph_sweep` at 2^12 (PageRank,
+           BFS, SSSP; HierarchySpec(l2_bytes=16384, l3_bytes=65536),
+           max_iters 128) once with each plan's own format and once
+           pinned to CSR, launch counts set to 0 before each graph pass
+           and summed over the cells' processes after it.  The payloads'
+           sha256 are pinned to the reference's (`SWEEP_DIGESTS`,
+           `GRAPH_REFERENCE`, from `tools/reference_sweep.py`; they are
+           the simulated Sandy Bridge machine's cycles and misses, not
+           the card's): every mech and scaling grid, and every BFS / SSSP
+           cell, byte for byte; a PageRank cell its format, nnz,
+           semiring and convergence, and its per-iteration summaries
+           those of the reference's iterations both ran
+           (`PAGERANK_ITERATION_RUNS`), both iteration counts printed
+           (ROADMAP C3).  Each graph cell's driver runs once more in the
+           main process under torch.profiler: its device time is
+           printed beside its driver's and replay's host seconds in the
+           worker.  Each graph cell's plan runs through its kernels
+           against its plain version, bit for bit.  The graph grid runs
+           again stopped at 5 cells into a checkpoint and resumed with
+           workers: byte-identical to the uninterrupted run.  The seed-0
+           cost-model harvest (240 label cells) equals the shipped
+           corpus rows and `costmodel --check` returns 0; the gap
+           reports are printed;
+  sharded  `plan.compile(mesh=row_mesh([card] * 4))` on the main path's
+           FD matrix with integer values, with the default and a
+           `rowblock_balanced` partition: four `spmv_ell` launches an
+           execute, bit-identical to the CSR plan and to the slabs'
+           plain versions; host build seconds, slab bytes, padding
+           factor, each slab's kernel ms beside the unsharded ELL plan's.
+           Then `save_plan` / `load_plan` of the main path's R-MAT
+           PageRank plan (hyb; seconds and bytes printed, bit-identical
+           after load) and of a 2^16 sharded plan (without a mesh its
+           execute raises the reference's error; rebound with `mesh=`
+           it is bit-identical).
 
 Then one JSON line `{"kernels": [...]}` and, last,
 `{"ok": true, "device": {...}}`.  It exits nonzero and prints no result
@@ -167,17 +207,20 @@ control flow:
     python3 chip_smoke.py --cpu-rehearsal --log2n 17 --dia-log2n 12 \
         --reorder-log2n 14 --bell-log2n 13 --reps 3 --attn-seq 256 \
         --attn-batch 1 --paged-seqs 8 --paged-max-len 512 \
-        --serve-replay-log2n 12
+        --serve-replay-log2n 12 --sweep-shift 4
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import importlib
+import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -247,6 +290,51 @@ ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5   # float32 kernel vs plain / oracle
 ORACLE_BF16_TOL = 5e-2              # bfloat16 vs the float32-math oracle
 TILES_PER_1024 = 12                 # dense 8x128 tiles of the blocked graph
 ANALYTICS = ("pagerank", "bfs", "sssp", "connected_components")
+#: the reference's payload sha256 of the sweep phase's grids
+#: (`PYTHONPATH=src JAX_PLATFORMS=cpu python3 tools/reference_sweep.py`):
+#: the simulated Sandy Bridge machine's cycles and misses, not the card's
+SWEEP_DIGESTS = {
+    "headline": "e4fa818fc5cbe9b42c5004c2cd45d5092025f839e2ef171db20e34dd2c21d6e4",
+    "mechanisms": "db6afb9f195baaf29e332cb8aabc44f97e93fd7c7c0bcbce8e01bc0bbbfd7c46",
+    "scaling": "16abec380908e0fc391d51ad4bbaabd7157c16bc0ee59fcd72d0c8dfaff1a94f",
+}
+#: the same tool's graph cells, `analytic|kind` -> (payload sha256,
+#: format, n_iters, converged, nnz, semiring)
+GRAPH_REFERENCE = {
+    "graph": {
+        "bfs|fd": ("d7220fcc0a9b4096c9638c24612e49febaf110d269051f62ceaf74a8f6f05440", "ell", 33, True, 36864, "or_and"),
+        "pagerank|fd": ("853d27343c619ba441838ab5a3be9f4d334d81bdc3ad29f174d75fb5fe998963", "dia", 76, True, 36864, "plus_times"),
+        "sssp|fd": ("0328e399cf9ed18e32c3a47a1443c17152ea6efaff0d9521128b86ff3dc239b9", "ell", 42, True, 36864, "min_plus"),
+        "bfs|rmat": ("c24411924d18fd86f8a6eb9e27a7999f512942867847f3af803ee7e65af4b1f7", "hyb", 12, True, 28657, "or_and"),
+        "pagerank|rmat": ("f380707345f609de1afffb789a97b388074595913d4dc6b97017ef97271bfcaf", "hyb", 32, True, 28657, "plus_times"),
+        "sssp|rmat": ("06883f8605bdc0c121cdb415c6857e87cdc678bbc18c2d37c24871b62fc36f6f", "hyb", 12, True, 28657, "min_plus"),
+    },
+    "graph-csr": {
+        "bfs|fd": ("827a18c251b965dc2302df0c4f805a355bd1dc8b850ebc4949bef5bc65c40004", "csr", 33, True, 36864, "or_and"),
+        "pagerank|fd": ("2d9c44114b72ca47d719e6d1d1914020ba396892a8cd8ce3124cb8b1b083911e", "csr", 68, True, 36864, "plus_times"),
+        "sssp|fd": ("b9ecd077a8df2eb66f1ea128245b37f457a7254ff7b3668d90bf03c52c8f62da", "csr", 42, True, 36864, "min_plus"),
+        "bfs|rmat": ("15f2710753d618daf950158672ffdb05212b25bdbe24c9f0343640a6f7708361", "csr", 12, True, 28657, "or_and"),
+        "pagerank|rmat": ("ec5014cd640dddf301a5af5c7632cc4ab5f994feb988fd7e48b5f057cac35c9e", "csr", 31, True, 28657, "plus_times"),
+        "sssp|rmat": ("ae2c287d0f61c0959bfc4dc3ebc1b8fe47e82c2e40f0545d9c13e1a974f96434", "csr", 12, True, 28657, "min_plus"),
+    },
+}
+#: the same tool's PageRank cells' per-iteration summaries as runs of
+#: [sha256[:16] of one iteration's summary, iterations] (its
+#: `iteration_runs`), which hold a port that stops at another iteration
+#: (ROADMAP C3) to the iterations both ran
+PAGERANK_ITERATION_RUNS = {
+    "graph": {
+        "pagerank|fd": (("e73a1f820e262e80", 1), ("17ea15b732ccaf94", 75)),
+        "pagerank|rmat": (("d9311ba10ca2078a", 1), ("23a9a807cbb16c65", 31)),
+    },
+    "graph-csr": {
+        "pagerank|fd": (("e73a1f820e262e80", 1), ("17ea15b732ccaf94", 67)),
+        "pagerank|rmat": (("45a96314a54683e7", 1), ("c4b58d03ad873d2b", 30)),
+    },
+}
+GRAPH_ANALYTICS = ("pagerank", "bfs", "sssp")
+GRAPH_SPEC = {"l2_bytes": 16384, "l3_bytes": 65536}   # graph_bench's cell
+SHARDS = 4                          # row slabs of the sharded phase
 
 FAILURES: list = []
 
@@ -2249,6 +2337,342 @@ def run_serve(args, dev, K, P, SG, D, drivers, fd_matrix, rmat_matrix,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# sweep: the paper's measurement grids through the sharded runner
+# ---------------------------------------------------------------------------
+
+def digest(points, encode) -> str:
+    return hashlib.sha256(b"".join(encode(p) for p in points)).hexdigest()
+
+
+def pinned(tag, got, want, full) -> None:
+    """Check a digest against the reference's, at the pinned size."""
+    if not full:
+        log(f"sweep {tag}: sha256={got} (not pinned at this size)")
+        return
+    check(got == want, f"sweep {tag}: payload sha256 {got} is not the "
+          f"reference's {want}")
+    log(f"sweep {tag}: sha256={got} reference={want} equal={got == want}")
+
+
+def iteration_digests(point) -> list:
+    """sha256[:16] of each iteration's summary, as `iteration_runs` of
+    `tools/reference_sweep.py` hashes them."""
+    return [hashlib.sha256(json.dumps(s.as_dict(), sort_keys=True)
+                           .encode()).hexdigest()[:16] for s in point.iters]
+
+
+def graph_checks(tag, points, info, encode, full) -> dict:
+    """Per graph cell: BFS / SSSP payloads must be the reference's bytes;
+    a PageRank cell its format, nnz, semiring and convergence, and its
+    per-iteration summaries the reference's for the iterations both ran,
+    with both iteration counts printed (ROADMAP C3).  Returns the
+    launches the pass's cells made, summed over the processes that ran
+    them."""
+    launches: dict = {}
+    for p in points:
+        key = f"{p.analytic}|{p.kind}"
+        ck = next(k for k in info if k.startswith(f"graph|{p.kind}|")
+                  and k.endswith(f"|{p.analytic}"))
+        cinfo = info[ck]
+        for k, v in cinfo["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        sha = hashlib.sha256(encode(p)).hexdigest()
+        log(f"sweep {tag} {key}: format={p.format_name} n_iters={p.n_iters} "
+            f"converged={p.converged} nnz={p.nnz} "
+            f"driver_s={cinfo['driver_s']:.3f} "
+            f"replay_s={cinfo['replay_s']:.3f} launches="
+            + json.dumps({k: v for k, v in cinfo["launches"].items() if v}))
+        if not full:
+            continue
+        ref = GRAPH_REFERENCE[tag][key]
+        log(f"sweep {tag} {key}: reference format={ref[1]} "
+            f"n_iters={ref[2]} converged={ref[3]} nnz={ref[4]}")
+        check((p.format_name, p.converged, p.nnz, p.semiring)
+              == (ref[1], ref[3], ref[4], ref[5]),
+              f"sweep {tag} {key}: (format, converged, nnz, semiring) "
+              f"{(p.format_name, p.converged, p.nnz, p.semiring)} are not "
+              f"the reference's {ref[1], ref[3], ref[4], ref[5]}")
+        if p.analytic != "pagerank":
+            check(sha == ref[0], f"sweep {tag} {key}: payload sha256 {sha} "
+                  f"is not the reference's {ref[0]}")
+            continue
+        want = [h for h, n in PAGERANK_ITERATION_RUNS[tag][key]
+                for _ in range(n)]
+        keep = min(len(want), p.n_iters)
+        same = iteration_digests(p)[:keep] == want[:keep]
+        check(keep > 0 and same, f"sweep {tag} {key}: the summaries of the "
+              f"first {keep} iterations are not the reference's")
+        log(f"sweep {tag} {key}: first {keep} iterations' summaries equal "
+            f"the reference's: {same}")
+    return launches
+
+
+def graph_device_ms(sweep, tag, fmt, log2n, info, dev) -> None:
+    """Each graph cell's driver run once more in this process under
+    torch.profiler: its device time (every kernel and copy of one run
+    to convergence) beside the host seconds of its driver and replay in
+    the worker that ran the cell."""
+    for kind in ("fd", "rmat"):
+        for analytic in GRAPH_ANALYTICS:
+            ck = next(k for k in info if k.startswith(f"graph|{kind}|")
+                      and k.endswith(f"|{analytic}"))
+            ms = trace_ms(lambda: sweep.run_graph_analytic(
+                kind, log2n, analytic, max_iters=128, format=fmt,
+                device=dev), 1, dev)["all"]
+            log(f"sweep {tag} {analytic}|{kind}: driver device_ms="
+                f"{'not measured' if ms is None else f'{ms:.4f}'} "
+                f"driver_host_s={info[ck]['driver_s']:.3f} "
+                f"replay_s={info[ck]['replay_s']:.3f}")
+
+
+def graph_kernels_vs_plain(P, drivers, bases, fmt, dev, errs) -> None:
+    """Each graph cell's plan through its kernels against its plain
+    version on the same operand: plus-times on integer values, the
+    semirings on their domains, bit for bit."""
+    gen = torch.Generator().manual_seed(23)
+    for kind, base in bases.items():
+        for analytic in GRAPH_ANALYTICS:
+            m, sr, _ = drivers.analytic_operand(analytic, base)
+            plan = P.compile(m, **P.compile_kwargs(drivers.plan_options(
+                sr, format=fmt, device=dev)))
+            if plan.semiring == "plus_times":
+                kern, plain = int_twin(P, plan, gen)
+            else:
+                kern = plan
+                plain = dataclasses.replace(plan, prep=None, use_pallas=False)
+            x = x_for(plan.semiring, m.n_cols, gen, dev)
+            compare(errs, FORMAT_KERNELS[plan.format_name][-1],
+                    f"sweep graph {kind} {analytic} {plan.format_name}",
+                    kern.execute(x), plain.execute(x), exact=True)
+
+
+def run_sweep_phase(args, dev, K, P, drivers, gens, errs) -> dict:
+    """The reference benchmarks' grids on the card's host, the cells
+    sharded over `workers` spawned processes (each with its own CUDA
+    context, one pool for every grid); returns the graph passes'
+    launches."""
+    from repro_torch.telemetry import runner
+
+    shift = args.sweep_shift
+    full = shift == 0
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with runner.shared_workers(workers):
+        return sweep_grids(args, dev, K, P, drivers, gens, errs, workers,
+                           full, shift)
+
+
+def sweep_grids(args, dev, K, P, drivers, gens, errs, workers, full,
+                shift) -> dict:
+    from repro_torch.plan import costmodel
+    from repro_torch.telemetry import report, runner, sweep
+    from repro_torch.telemetry.hierarchy import HierarchySpec
+
+    kw = dict(workers=workers, device=str(dev))
+    enc = runner.encode_point
+    log(f"sweep workers={workers} device={dev} log2n shift={shift}")
+    t0 = time.perf_counter()
+    head = sweep.run_sweep(log2ns=tuple(k - shift for k in (12, 14, 16)),
+                           mechanisms={"baseline": HierarchySpec()}, **kw)
+    log(f"sweep headline: cells={len(head)} "
+        f"s={time.perf_counter() - t0:.1f}")
+    pinned("headline", digest(head, enc), SWEEP_DIGESTS["headline"], full)
+    t0 = time.perf_counter()
+    mech = sweep.run_sweep(log2ns=(14 - shift,),
+                           mechanisms=sweep.MECHANISMS, **kw)
+    log(f"sweep mechanisms: cells={len(mech)} "
+        f"s={time.perf_counter() - t0:.1f}")
+    pinned("mechanisms", digest(mech, enc), SWEEP_DIGESTS["mechanisms"],
+           full)
+    t0 = time.perf_counter()
+    scal = sweep.scaling_sweep(log2ns=(12 - shift,),
+                               threads_list=(1, 2, 4, 8),
+                               partition="balanced", **kw)
+    log(f"sweep scaling: cells={len(scal)} "
+        f"s={time.perf_counter() - t0:.1f}")
+    pinned("scaling", digest(scal, enc), SWEEP_DIGESTS["scaling"], full)
+
+    gkw = dict(log2ns=(12 - shift,), analytics=GRAPH_ANALYTICS,
+               spec=HierarchySpec(**GRAPH_SPEC), max_iters=128, **kw)
+    passes, launches = {}, {}
+    for tag, fmt in (("graph", None), ("graph-csr", "csr")):
+        info: dict = {}
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        passes[tag] = sweep.graph_sweep(format=fmt, cell_info=info, **gkw)
+        log(f"sweep {tag}: cells={len(passes[tag])} "
+            f"s={time.perf_counter() - t0:.1f}")
+        counts = graph_checks(tag, passes[tag], info, enc, full)
+        log(f"sweep {tag} launches {json.dumps(counts)}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        want = {"graph": ("spmv_dia", "spmv_ell", "spmv_csr_seg"),
+                "graph-csr": ("spmv_csr",)}[tag]
+        if dev.type == "cuda":
+            for k in want:
+                check(counts.get(k, 0) > 0,
+                      f"sweep {tag} launched {k} no time")
+        log(f"sweep {tag}: sha256={digest(passes[tag], enc)}")
+        t0 = time.perf_counter()
+        graph_device_ms(sweep, tag, fmt, 12 - shift, info, dev)
+        log(f"sweep {tag} device traces s={time.perf_counter() - t0:.1f}")
+    bases = {"fd": gens["fd"](1 << (12 - shift), device=dev),
+             "rmat": gens["rmat"](1 << (12 - shift), device=dev)}
+    for fmt in (None, "csr"):
+        graph_kernels_vs_plain(P, drivers, bases, fmt, dev, errs)
+
+    # interrupted at 5 cells (the runner's `max_cells`), then resumed
+    # with workers
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        first = runner.execute_cells(
+            runner.graph_cells(gkw["log2ns"], ("fd", "rmat"),
+                               GRAPH_ANALYTICS),
+            runner.SweepConfig(hier_spec=gkw["spec"], max_iters=128,
+                               device=str(dev)),
+            workers=workers, ckpt_dir=ck, max_cells=5)
+        rest = sweep.graph_sweep(ckpt_dir=ck, **gkw)
+        same = [enc(p) for p in rest] == [enc(p) for p in passes["graph"]]
+        check(len(first) == 5 and same, "sweep resume: the resumed graph "
+              "grid is not byte-identical to the uninterrupted one")
+        log(f"sweep resume: first={len(first)} resumed={len(rest)} "
+            f"byte-identical={same} s={time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    rows = costmodel.harvest(seeds=(0,), workers=workers, device=str(dev))
+    want = [r for r in costmodel.load_corpus(costmodel.DEFAULT_CORPUS)
+            if r.seed == 0]
+    canon = [json.dumps([dataclasses.asdict(r) for r in costmodel.sort_rows(
+        rs)], sort_keys=True) for rs in (rows, want)]
+    check(len(rows) == 240 and canon[0] == canon[1], "sweep harvest: the "
+          "seed-0 labels are not the shipped corpus rows")
+    log(f"sweep harvest: rows={len(rows)} corpus_seed0={len(want)} "
+        f"equal={canon[0] == canon[1]} s={time.perf_counter() - t0:.1f}")
+    rc = costmodel.main(["--check"])
+    check(rc == 0, f"costmodel --check returned {rc}")
+    log(f"sweep costmodel --check rc={rc}")
+    log(report.gap_report(head))
+    log(report.graph_gap_report(passes["graph"]))
+    log(report.graph_gap_report(passes["graph-csr"]))
+    log(report.scaling_gap_report(scal))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# sharded: row-sharded ELL plans and plans through checkpoints
+# ---------------------------------------------------------------------------
+
+def sharded_check(tag, K, SR, sp, want, x, dev, reps, ell_ms) -> dict:
+    """One sharded plan: launches of one execute, bit-identical to the
+    CSR plan and to its slabs' plain versions; slab bytes, padding and
+    per-slab kernel times."""
+    prep = sp.prep
+    K.reset_launch_counts()
+    y = sp.execute(x)
+    sync(dev)
+    counts = K.launch_counts()
+    slabs = prep.slabs(sp.mesh.devices)
+    plain = torch.cat([K.spmv_ell_plain(d, i, x, SR["plus_times"])[
+        : int(prep.starts[p + 1] - prep.starts[p])]
+        for p, (d, i) in enumerate(slabs)])
+    ok_csr, ok_plain = torch.equal(y, want), torch.equal(y, plain)
+    check(ok_csr and ok_plain, f"sharded {tag}: not bit-identical to the "
+          f"CSR plan ({ok_csr}) or its plain slabs ({ok_plain})")
+    if dev.type == "cuda":
+        check(counts["spmv_ell"] == prep.n_parts,
+              f"sharded {tag}: {counts['spmv_ell']} spmv_ell launches for "
+              f"{prep.n_parts} slabs")
+    slots = prep.data.size
+    slab_ms = [time_ms(lambda d=d, i=i: K.spmv_ell(d, i, x, SR["plus_times"]),
+                       reps, dev) for d, i in slabs]
+    log(f"sharded {tag}: parts={prep.n_parts} starts={prep.starts.tolist()} "
+        f"slab={tuple(prep.data.shape[1:])} build_s="
+        f"{sp.compile_stats['prepare_s']:.2f} slab_bytes={prep.nbytes()} "
+        f"padding={slots / max(sp.csr.nnz if sp.csr is not None else 1, 1):.2f}"
+        f" launches={counts['spmv_ell']} csr_equal={ok_csr} "
+        f"plain_equal={ok_plain}")
+    log(f"sharded {tag}: slab_ms={[round(t, 4) for t in slab_ms]} "
+        f"sum_ms={sum(slab_ms):.4f} unsharded_ell_ms={ell_ms:.4f}")
+    return counts
+
+
+def run_sharded(args, dev, K, P, SR, fd_adj, hyb_plan, fd_matrix) -> dict:
+    """`plan.compile(mesh=row_mesh([dev] * 4))` on the main path's FD
+    matrix with integer values, then plans through `save_plan` /
+    `load_plan`; returns the launches of the sharded executes."""
+    from repro_torch.core.partition import rowblock_balanced
+    from repro_torch.distributed import row_mesh
+
+    gen = torch.Generator().manual_seed(31)
+    fd = dataclasses.replace(fd_adj, data=int_values(fd_adj.data,
+                                                     "plus_times", gen))
+    x = x_for("plus_times", fd.n_cols, gen, dev)
+    mesh = row_mesh([str(dev)] * SHARDS)
+    kw = dict(reorder="none", predictor="none")
+    want = P.compile(fd, format="csr", device=dev, **kw).execute(x)
+    ell = P.compile(fd, format="ell", device=dev, **kw)
+    ell_ms = time_ms(lambda: ell.execute(x), args.reps, dev)
+    del ell
+    launches = {}
+    for tag, part in (("equal", None),
+                      ("balanced", rowblock_balanced(fd, SHARDS))):
+        t0 = time.perf_counter()
+        sp = P.compile(fd, mesh=mesh, partition=part, **kw)
+        sync(dev)
+        log(f"sharded {tag}: compile_s={time.perf_counter() - t0:.2f}")
+        check(sp.format_name == "ell-sharded",
+              f"sharded {tag}: format {sp.format_name}")
+        counts = sharded_check(tag, K, SR, sp, want, x, dev, args.reps,
+                               ell_ms)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        del sp
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        xr = torch.rand(hyb_plan.n_cols, generator=gen).to(dev)
+        y0 = hyb_plan.execute(xr)
+        t0 = time.perf_counter()
+        P.save_plan(hyb_plan, os.path.join(d, "hyb"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = P.load_plan(os.path.join(d, "hyb"), device=dev)
+        sync(dev)
+        load_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(d, "hyb").rglob("*")
+                   if f.is_file())
+        same = torch.equal(back.execute(xr), y0)
+        check(back.format_name == hyb_plan.format_name and same,
+              "sharded save/load: the reloaded "
+              f"{hyb_plan.format_name} plan is not bit-identical")
+        log(f"sharded save_plan {hyb_plan.format_name} n={hyb_plan.n_rows}: "
+            f"save_s={save_s:.2f} load_s={load_s:.2f} bytes={size} "
+            f"bit-identical={same}")
+
+        small = fd_matrix(1 << args.dia_log2n, device=dev)
+        sp = P.compile(small, mesh=mesh, **kw)
+        xs = x_for("plus_times", small.n_cols, gen, dev)
+        ys = sp.execute(xs)
+        P.save_plan(sp, os.path.join(d, "sharded"))
+        bare, _ = P.load_plan(os.path.join(d, "sharded"), device=dev)
+        try:
+            bare.execute(xs)
+            refused = "no error"
+        except ValueError as e:
+            refused = str(e)
+        want_msg = ("sharded plan has no mesh bound; pass mesh= to "
+                    "load_plan or set plan.mesh")
+        rebound, _ = P.load_plan(os.path.join(d, "sharded"), mesh=mesh)
+        same = torch.equal(rebound.execute(xs), ys)
+        check(refused == want_msg and same, "sharded save/load 2^"
+              f"{args.dia_log2n}: refusal {refused!r}, rebound equal {same}")
+        log(f"sharded save_plan ell-sharded 2^{args.dia_log2n}: without a "
+            f"mesh raises {refused!r}; rebound with mesh= bit-identical="
+            f"{same}")
+    return launches
+
+
 def _coo(csr):
     rows = torch.repeat_interleave(
         torch.arange(csr.n_rows, device=csr.data.device),
@@ -2278,6 +2702,9 @@ def main(argv=None) -> int:
                     help="longest paged sequence (lengths in [1, this])")
     ap.add_argument("--serve-replay-log2n", type=int, default=16,
                     help="rows of the serve phase's replayed trace (2^k)")
+    ap.add_argument("--sweep-shift", type=int, default=0,
+                    help="cut the sweep grids' log2n by this much (the "
+                         "digests are pinned at 0)")
     ap.add_argument("--reps", type=int, default=50,
                     help="kernel launches per timing")
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2489,6 +2916,20 @@ def main(argv=None) -> int:
         args, dev, K, P, SG, D, drivers, fd_matrix, rmat_matrix, adjs,
         cache, kern, args.reps)
     log(f"serve phase_s={time.perf_counter() - t0:.1f}")
+
+    # -- sweep -------------------------------------------------------------------
+    t0 = time.perf_counter()
+    phase_counts["sweep"] = run_sweep_phase(
+        args, dev, K, P, drivers, {"fd": fd_matrix, "rmat": rmat_matrix},
+        errs)
+    log(f"sweep phase_s={time.perf_counter() - t0:.1f}")
+
+    # -- sharded -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    phase_counts["sharded"] = run_sharded(
+        args, dev, K, P, SR, adjs["fd"], kern["rmat"]["pagerank"][0].plan,
+        fd_matrix)
+    log(f"sharded phase_s={time.perf_counter() - t0:.1f}")
     totals = {k: sum(c.get(k, 0) for c in phase_counts.values())
               for k in K.KERNELS}
     log(f"launches by path {json.dumps(phase_counts)}")

@@ -14,15 +14,19 @@ or the `msgpack` package.  One directory per step:
                               # order, zlib level 3
         COMMITTED             # written last: a step without it is torn
 
-Keys are the reference's paths (`['a']['b']`), so a tree written here
+Keys are the reference's paths (`['a']['b']`, any characters but `'`,
+so the sweep runner's `|`-joined cell keys too), so a tree written here
 has the reference's manifest and shard bytes, and one written by the
 reference with its zlib codec (the shipped artifact's) restores here.
-Saves are synchronous and single-host, and keep every step.
+Saves are synchronous and single-host (`wait` has nothing to join);
+after each save only the newest `keep` committed steps stay, as in the
+reference.
 """
 from __future__ import annotations
 
 import os
 import re
+import shutil
 import zlib
 from typing import Dict, List, Optional, Tuple
 
@@ -64,10 +68,12 @@ def _treedef(tree: Dict) -> str:
 
 
 class CheckpointManager:
-    """Committed-step save and schema-free restore of dict trees."""
+    """Committed-step save and schema-free restore of dict trees; the
+    newest `keep` committed steps survive each save."""
 
-    def __init__(self, ckpt_dir: str):
+    def __init__(self, ckpt_dir: str, keep: int = 3):
         self.dir = ckpt_dir
+        self.keep = keep
 
     def save(self, step: int, tree: Dict) -> str:
         """Write `tree` as committed step `step`; returns the step dir."""
@@ -96,7 +102,12 @@ class CheckpointManager:
         os.replace(mpath + ".tmp", mpath)
         with open(os.path.join(step_dir, "COMMITTED"), "w") as f:
             f.write(str(step))
+        for old in self.committed_steps()[:-self.keep]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{old:09d}"))
         return step_dir
+
+    def wait(self) -> None:
+        """Saves are synchronous: nothing to join."""
 
     def committed_steps(self) -> List[int]:
         if not os.path.isdir(self.dir):

@@ -191,6 +191,79 @@ def spmv_ell_prepared(prep: PreparedELL, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# ELL row shards (the row-sharded plans of `repro_torch.distributed`)
+# ---------------------------------------------------------------------------
+
+def round_up(a: int, b: int) -> int:
+    return ceil_div(a, b) * b
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedELL:
+    """Row-partitioned ELL, the reference's layout byte for byte: one
+    (rows_pad, W) slab per part, stacked, on the host.  Columns stay
+    global (x is replicated); padding slots index column 0 with value 0,
+    and their 0 * x[0] products stay in each row's sum, as in the
+    reference.  `slabs(devices)` gives each part's slot-major (W,
+    rows_pad) transpose on its device -- the layout the ELL kernel
+    reads -- made once per device list and kept."""
+    data: np.ndarray          # (parts, rows_pad, W) f32
+    idx: np.ndarray           # (parts, rows_pad, W) int32, global columns
+    n_rows: int
+    n_cols: int
+    starts: np.ndarray        # (parts + 1,) int64 row range per part
+    bm: int                   # the reference's row block (rows_pad % bm == 0)
+    _bound: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
+
+    @property
+    def n_parts(self) -> int:
+        return int(self.data.shape[0])
+
+    def nbytes(self) -> int:
+        return int(self.data.nbytes + self.idx.nbytes)
+
+    def slabs(self, devices) -> tuple:
+        """((data_t, idx_t) per part, on `devices[part]`)."""
+        key = tuple(torch.device(d) for d in devices)
+        if len(key) != self.n_parts:
+            raise ValueError(f"partition has {self.n_parts} parts for "
+                             f"{len(key)} devices on axis 'shards'")
+        if key not in self._bound:
+            self._bound[key] = tuple(
+                (to_tensor(self.data[p], dev).t().contiguous(),
+                 to_tensor(self.idx[p], dev).t().contiguous())
+                for p, dev in enumerate(key))
+        return self._bound[key]
+
+
+def prepare_ell_shards(csr: CSR, partition, bm: int = 128,
+                       pad_mult: int = 128) -> ShardedELL:
+    """Pack each `RowPartition` part into one padded ELL slab.  Every
+    slab has the global max row length rounded up to `pad_mult` slots
+    and the largest part's rows rounded up to `bm`, as in the
+    reference."""
+    starts = np.asarray(partition.starts, dtype=np.int64)
+    n_parts = len(starts) - 1
+    indptr = to_numpy(csr.indptr).astype(np.int64)
+    row_len = np.diff(indptr)
+    w = round_up(max(int(row_len.max()) if len(row_len) else 1, 1), pad_mult)
+    rows_pad = round_up(max(int(np.diff(starts).max()), 1), bm)
+
+    vals = to_numpy(csr.data)
+    D = np.zeros((n_parts, rows_pad, w), dtype=vals.dtype)
+    C = np.zeros((n_parts, rows_pad, w), dtype=np.int32)
+    rows = np.repeat(np.arange(csr.n_rows, dtype=np.int64), row_len)
+    part_of = np.searchsorted(starts, rows, side="right") - 1
+    inner = np.arange(csr.nnz, dtype=np.int64) - indptr[rows]
+    D[part_of, rows - starts[part_of], inner] = vals
+    C[part_of, rows - starts[part_of], inner] = \
+        to_numpy(csr.indices).astype(np.int32)
+    return ShardedELL(data=D, idx=C, n_rows=csr.n_rows, n_cols=csr.n_cols,
+                      starts=starts, bm=bm)
+
+
+# ---------------------------------------------------------------------------
 # Padded CSR (column stripes x row blocks)
 # ---------------------------------------------------------------------------
 
@@ -366,6 +439,7 @@ __all__ = [
     "PreparedDIA", "prepare_dia", "spmv_dia_prepared",
     "PreparedBELL", "prepare_bell", "spmv_bell_prepared",
     "PreparedELL", "prepare_ell", "spmv_ell_prepared",
+    "round_up", "ShardedELL", "prepare_ell_shards",
     "PaddedCSR", "prepare_csr", "spmv_csr_prepared",
     "PreparedSegCSR", "segment_stream", "prepare_csr_seg",
     "spmv_csr_seg_prepared",

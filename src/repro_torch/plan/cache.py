@@ -17,8 +17,9 @@ The streaming plan lifecycle (`plan.overlay`, `serve_graph`) uses
 `delta_recompiles`.  Compiles are also split by the scoring they ran
 (`compile_stats["scoring"]`): 'model' into `predictor_compiles` /
 `predictor_compile_s`, 'replay' and 'analytic' into `oracle_compiles` /
-`oracle_compile_s`.  The mesh / partition option tokens come with
-sharded plans (ROADMAP A10).
+`oracle_compile_s`.  A sharded plan's `mesh` keys as the reference's
+token `mesh:{shape}:{device ids}` with the torch devices' indices (a
+CPU device as 0), its `partition` as `part:{digest of starts}`.
 """
 from __future__ import annotations
 
@@ -65,6 +66,12 @@ def _opt_token(v) -> str:
         return _fn_token(v)
     if isinstance(v, np.ndarray):
         return "nd:" + fingerprint_arrays(v)
+    from repro_torch.distributed.spmv import RowMesh
+
+    if isinstance(v, RowMesh):                     # "cuda:0" keys apart from "cpu"
+        return f"mesh:{v.shape}:{[str(d) for d in v.devices]}"
+    if hasattr(v, "starts"):                               # a RowPartition
+        return "part:" + fingerprint_arrays(np.asarray(v.starts))
     return repr(v)
 
 

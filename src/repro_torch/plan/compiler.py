@@ -21,8 +21,11 @@ the strict-`>` tie-breaks in sorted candidate order and the
 Candidates are permuted where the matrix lies and analysed on the host;
 only the chosen one is converted and laid out on `device`.
 `compile_stats` carries the reference's keys, `["scoring"]` the
-resolved mode ('model', 'replay', 'analytic' or 'none').  Sharded plans
-(mesh=, partition=; ROADMAP A10) raise `NotImplementedError`.
+resolved mode ('model', 'replay', 'analytic' or 'none').  With `mesh=`
+(a `distributed.RowMesh`) the chosen candidate becomes a row-sharded
+plan ('ell-sharded'): one ELL slab per part of `partition` (default
+`distributed.default_row_partition`), one `spmv_ell` launch per slab on
+its device.
 """
 from __future__ import annotations
 
@@ -74,11 +77,6 @@ def choose_format(report, threads: int = 1,
         if threads > 1 and report.row_nnz_cv >= SEG_MIN_CV:
             return "csr-seg"
     return "ell" if semiring_safe else "csr"
-
-
-def _not_in_slice(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP {item})")
 
 
 def convert(csr: CSR, format_name: str, fill: float = 0.0, device=None):
@@ -286,14 +284,27 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
                 merge-path items (row ends and nonzeros) per window
                 of the 'csr-seg'/'hyb' layouts
     keep_csr    keep the permuted CSR on the plan
+    mesh / partition   a `distributed.RowMesh`: build a row-sharded
+                plan over `partition` (a `RowPartition` with one part
+                per mesh device); the plan lives on the mesh's first
+                device unless `device` says otherwise
     """
-    if mesh is not None or partition is not None:
-        raise _not_in_slice("sharded plans (mesh=, partition=)", "A10")
+    if mesh is not None:
+        from repro_torch.distributed.spmv import RowMesh
+
+        if not isinstance(mesh, RowMesh):
+            raise TypeError("mesh must be a repro_torch.distributed.RowMesh "
+                            f"(distributed.row_mesh), got "
+                            f"{type(mesh).__name__}")
+        if device is None:
+            device = mesh.devices[0]
     dev = resolve_device(device)
     sr = resolve(semiring)
     if SEMIRINGS.get(sr.name) is not sr:
         raise ValueError(f"semiring {sr.name!r} is not registered in "
                          "repro_torch.graph.semiring.SEMIRINGS")
+    if mesh is not None and sr.name != "plus_times":
+        raise ValueError("sharded plans are plus-times only")
     if format is not None and format not in FORMATS:
         raise ValueError(f"unknown format {format!r}")
     semiring_safe = sr.name != "plus_times"
@@ -360,6 +371,12 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
         reordering.index("col_perm", dev)
         reordering.index("inv_row_perm", dev)
 
+    if mesh is not None:
+        return _compile_sharded(fp, permuted, reordering, report, mesh,
+                                partition, bm=bm, threads=threads,
+                                predicted=predicted, chosen=chosen,
+                                stats=stats, keep_csr=keep_csr, dev=dev)
+
     t0 = time.perf_counter()
     container = convert(permuted, format_name, fill=sr.pad_value,
                         device=dev)
@@ -376,6 +393,33 @@ def compile(matrix: CSR, *,                       # noqa: A001 (plan.compile)
         csr=permuted.to(dev) if keep_csr else None, threads=threads,
         use_pallas=use_pallas, semiring=sr.name, predicted=predicted,
         chosen=chosen, compile_stats=stats)
+
+
+def _compile_sharded(fp, permuted, reordering, report, mesh, partition, *,
+                     bm, threads, predicted, chosen, stats, keep_csr,
+                     dev) -> SpmvPlan:
+    """Row-sharded plan: `prepare_ell_shards` on the host, then each
+    slab's slot-major transpose on its mesh device."""
+    from repro_torch.distributed.spmv import default_row_partition
+
+    t0 = time.perf_counter()
+    if partition is None:
+        partition = default_row_partition(permuted, mesh)
+    if getattr(partition, "starts", None) is None:
+        raise TypeError("partition must be a core.partition.RowPartition, "
+                        f"got {type(partition).__name__}")
+    if partition.n_parts != mesh.n_shards:
+        raise ValueError(f"partition has {partition.n_parts} parts for "
+                         f"{mesh.n_shards} devices on axis 'shards'")
+    prep = kl.prepare_ell_shards(permuted, partition, bm=bm)
+    prep.slabs(mesh.devices)
+    stats["prepare_s"] = time.perf_counter() - t0
+    return SpmvPlan(
+        fingerprint=fp, format_name="ell-sharded", container=None,
+        prep=prep, device=dev, reordering=reordering, report=report,
+        csr=permuted.to(dev) if keep_csr else None, threads=threads,
+        use_pallas=True, predicted=predicted, chosen=chosen,
+        compile_stats=stats, mesh=mesh)
 
 
 def plan_for_container(matrix) -> SpmvPlan:

@@ -15,8 +15,15 @@ shipped model byte for byte (`model_bytes`, encoded by the port's own
 MessagePack codec).  The port reads only its own copy of the artifact
 and corpus, under `repro_torch/plan/_data/`.  The replay oracle stays
 as the fallback scorer and labels the corpus (`run_label_cell`
-mirrors the compiler's replay branch); harvesting a new corpus waits
-for the sweep runner.
+mirrors the compiler's replay branch), harvested through the sweep
+runner (`harvest`, sharded and resumable like any sweep).
+
+    python -m repro_torch.plan.costmodel --harvest --corpus corpus.json \
+        --ckpt /tmp/labels            # replay-label the grid
+    python -m repro_torch.plan.costmodel --fit --corpus corpus.json \
+        --out DIR                     # deterministic refit
+    python -m repro_torch.plan.costmodel --eval --corpus corpus.json
+    python -m repro_torch.plan.costmodel --check    # refit == shipped
 """
 from __future__ import annotations
 
@@ -368,6 +375,48 @@ def run_label_cell(kind: str, log2n: int, reorder: str, threads: int,
                       features=tuple(float(v) for v in feats))
 
 
+def label_cells(kinds: Sequence[str] = LABEL_KINDS,
+                log2ns: Sequence[int] = (8, 9, 10),
+                threads_list: Sequence[int] = (1, 2, 4, 8),
+                reorders: Sequence[str] = ("none", "rcm"),
+                specs: Sequence[str] = ("default", "scaled")) -> List:
+    """The label grid as runner `SweepCell`s (sweep='label'; the spec
+    label rides the free `mechanism` field).  Seeds are not a cell axis:
+    they come from `SweepConfig.seed`, one `execute_cells` pass each."""
+    from repro_torch.telemetry.runner import SweepCell, sort_cells
+
+    return sort_cells([
+        SweepCell(sweep="label", kind=k, log2n=int(n), reorder=r,
+                  threads=int(t), mechanism=s)
+        for k in kinds for n in log2ns for r in reorders
+        for t in threads_list for s in specs])
+
+
+def harvest(kinds: Sequence[str] = LABEL_KINDS,
+            log2ns: Sequence[int] = (8, 9, 10),
+            threads_list: Sequence[int] = (1, 2, 4, 8),
+            reorders: Sequence[str] = ("none", "rcm"),
+            specs: Sequence[str] = ("default", "scaled"),
+            seeds: Sequence[int] = (0, 1, 2),
+            workers: int = 1, ckpt_dir: Optional[str] = None,
+            sweeps: int = 2, device=None) -> List[LabelPoint]:
+    """Replay-label the grid through the sharded resumable runner, one
+    checkpointed pass per seed (`ckpt_dir/seed<N>`), the matrices made
+    on `device` (None: the card)."""
+    from repro_torch.telemetry.runner import (SweepConfig, device_name,
+                                              execute_cells)
+
+    cells = label_cells(kinds, log2ns, threads_list, reorders, specs)
+    rows: List[LabelPoint] = []
+    for seed in seeds:
+        cfg = SweepConfig(seed=int(seed), sweeps=sweeps,
+                          device=device_name(device))
+        sub = os.path.join(ckpt_dir, f"seed{seed}") if ckpt_dir else None
+        rows.extend(execute_cells(cells, cfg, workers=workers,
+                                  ckpt_dir=sub))
+    return sort_rows(rows)
+
+
 # ---------------------------------------------------------------------------
 # Corpus I/O: canonical JSON (exact float round-trip, sorted keys)
 # ---------------------------------------------------------------------------
@@ -501,6 +550,114 @@ def set_default_model(model: Optional[CostModel]):
     return prev
 
 
+# ---------------------------------------------------------------------------
+# CLI: harvest / fit / eval / check
+# ---------------------------------------------------------------------------
+
+DEFAULT_CORPUS = os.path.join(os.path.dirname(__file__), "_data",
+                              "costmodel_corpus.json")
+
+
+def _int_list(s: str) -> List[int]:
+    return [int(v) for v in s.split(",") if v]
+
+
+def _str_list(s: str) -> List[str]:
+    return [v for v in s.split(",") if v]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="learned plan-compiler cost model: harvest replay "
+                    "labels, fit, evaluate, or verify the shipped artifact")
+    ap.add_argument("--harvest", action="store_true",
+                    help="replay-label the grid into --corpus")
+    ap.add_argument("--fit", action="store_true",
+                    help="deterministic refit from --corpus into --out")
+    ap.add_argument("--eval", action="store_true",
+                    help="agreement/regression metrics of --model on --corpus")
+    ap.add_argument("--check", action="store_true",
+                    help="refit from --corpus and byte-compare against the "
+                         "shipped artifact (exit 1 on drift)")
+    ap.add_argument("--corpus", default=DEFAULT_CORPUS)
+    ap.add_argument("--out", default=DEFAULT_MODEL_DIR,
+                    help="checkpoint directory the fitted model is saved to")
+    ap.add_argument("--model", default=DEFAULT_MODEL_DIR,
+                    help="checkpoint directory --eval loads from")
+    ap.add_argument("--kinds", default=",".join(LABEL_KINDS))
+    ap.add_argument("--log2ns", default="8,9,10")
+    ap.add_argument("--threads", default="1,2,4,8")
+    ap.add_argument("--reorders", default="none,rcm")
+    ap.add_argument("--specs", default="default,scaled")
+    ap.add_argument("--seeds", default="0,1,2")
+    ap.add_argument("--sweeps", type=int, default=2)
+    ap.add_argument("--workers", type=int, default=1)
+    ap.add_argument("--ckpt", default=None,
+                    help="harvest checkpoint directory (resumable)")
+    ap.add_argument("--device", default=None,
+                    help="where --harvest makes its matrices, e.g. cuda or "
+                         "cpu (default: the card)")
+    args = ap.parse_args(argv)
+
+    if not (args.harvest or args.fit or args.eval or args.check):
+        ap.error("pick at least one of --harvest/--fit/--eval/--check")
+
+    if args.harvest:
+        rows = harvest(kinds=_str_list(args.kinds),
+                       log2ns=_int_list(args.log2ns),
+                       threads_list=_int_list(args.threads),
+                       reorders=_str_list(args.reorders),
+                       specs=_str_list(args.specs),
+                       seeds=_int_list(args.seeds),
+                       workers=args.workers, ckpt_dir=args.ckpt,
+                       sweeps=args.sweeps, device=args.device)
+        save_corpus(rows, args.corpus)
+        print(f"[costmodel] harvested {len(rows)} rows -> {args.corpus} "
+              f"(digest {corpus_digest(rows)})")
+
+    if args.fit:
+        from .serial import save_model
+
+        rows = load_corpus(args.corpus)
+        model = fit(rows)
+        save_model(model, args.out)
+        print(f"[costmodel] fit {len(model.trees)} trees on {len(rows)} "
+              f"rows -> {args.out} (digest {model_digest(model)})")
+
+    if args.eval:
+        from .serial import load_model
+
+        rows = load_corpus(args.corpus)
+        model, _ = load_model(args.model)
+        m = evaluate(model, rows)
+        print(f"[costmodel] eval on {m['n_rows']} rows / {m['n_groups']} "
+              f"cells: agreement={m['agreement']:.3f} "
+              f"mae_log2={m['mae_log2']:.4f} r2={m['r2']:.4f}")
+        for kind, rate in m["by_kind"].items():
+            print(f"[costmodel]   {kind}: agreement={rate:.3f}")
+
+    if args.check:
+        from .serial import load_model
+
+        rows = load_corpus(args.corpus)
+        refit = fit(rows)
+        shipped, _ = load_model(DEFAULT_MODEL_DIR)
+        ok = model_bytes(refit) == model_bytes(shipped)
+        print(f"[costmodel] refit digest {model_digest(refit)} vs shipped "
+              f"{model_digest(shipped)}: {'OK' if ok else 'MISMATCH'}")
+        if not ok:
+            return 1
+        m = evaluate(shipped, rows)
+        print(f"[costmodel] shipped-model agreement on checked-in corpus: "
+              f"{m['agreement']:.3f} over {m['n_groups']} cells")
+        if m["agreement"] < 0.9:
+            print("[costmodel] agreement below the 0.9 floor")
+            return 1
+    return 0
+
+
 # package-level alias: `plan.fit_cost_model` (a bare `plan.fit` would
 # read ambiguously next to `plan.compile`)
 fit_cost_model = fit
@@ -510,7 +667,10 @@ __all__ = [
     "fit_cost_model",
     "LABEL_KINDS", "LABEL_SPECS", "features_for", "fit", "evaluate",
     "pick_winner", "model_bytes", "model_digest", "label_matrix",
-    "run_label_cell", "sort_rows", "save_corpus", "load_corpus",
-    "corpus_digest", "default_model", "set_default_model",
-    "DEFAULT_MODEL_DIR",
+    "label_cells", "run_label_cell", "harvest", "sort_rows",
+    "save_corpus", "load_corpus", "corpus_digest", "default_model",
+    "set_default_model", "DEFAULT_MODEL_DIR", "DEFAULT_CORPUS", "main",
 ]
+
+if __name__ == "__main__":
+    raise SystemExit(main())

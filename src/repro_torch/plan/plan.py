@@ -25,7 +25,10 @@ CPU plan.
                        (`telemetry.hierarchy.format_address_trace`),
                        built on the host and cached per machine.
 
-Sharded plans (ROADMAP A10) wait for their slice.
+A row-sharded plan ('ell-sharded', `compile(mesh=...)`) holds no
+container: its `prep` is a `kernels._layout.ShardedELL` and `mesh` the
+`distributed.RowMesh` its slabs run on (never serialized; `load_plan`
+takes `mesh=` to rebind one).
 """
 from __future__ import annotations
 
@@ -75,7 +78,8 @@ class SpmvPlan:
     `repro_torch.plan.compile` or a `PlanCache`)."""
 
     fingerprint: str                 # digest of the ORIGINAL matrix
-    format_name: str                 # 'dia'|'bell'|'ell'|'csr'|'csr-seg'|'hyb'
+    format_name: str                 # 'dia'|'bell'|'ell'|'csr'|'csr-seg'|
+                                     # 'hyb'|'ell-sharded'
     container: Any                   # converted container (post-reorder)
     prep: Any                        # prepared kernel layout (or None)
     device: torch.device
@@ -89,17 +93,20 @@ class SpmvPlan:
     predicted: Dict[str, Dict] = dataclasses.field(default_factory=dict)
     chosen: str = "none"             # scored candidate ("none": unscored)
     compile_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    mesh: Any = None                 # sharded plans only; never serialized
     # machine -> address trace, filled by `address_trace`
     _traces: Dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
 
     @property
     def n_rows(self) -> int:
-        return int(self.container.n_rows)
+        src = self.container if self.container is not None else self.prep
+        return int(src.n_rows)
 
     @property
     def n_cols(self) -> int:
-        return int(self.container.n_cols)
+        src = self.container if self.container is not None else self.prep
+        return int(src.n_cols)
 
     def _input(self, x) -> torch.Tensor:
         """x on the plan's device as f32; a tensor on another device is
@@ -121,6 +128,15 @@ class SpmvPlan:
 
     def _run(self, x: torch.Tensor) -> torch.Tensor:
         sr = resolve(self.semiring)
+        if self.format_name == "ell-sharded":
+            from repro_torch.distributed.spmv import spmv_row_sharded_prepared
+
+            if sr.name != "plus_times":
+                raise ValueError("sharded plans are plus-times only")
+            if self.mesh is None:
+                raise ValueError("sharded plan has no mesh bound; pass "
+                                 "mesh= to load_plan or set plan.mesh")
+            return spmv_row_sharded_prepared(self.prep, x, self.mesh)
         if not self.use_pallas:
             if x.dim() != 1 or x.shape[0] != self.n_cols:
                 raise ValueError(f"x must have shape ({self.n_cols},)")

@@ -766,3 +766,50 @@ def test_engine_trace_with_mutations_replays_on_the_card(cuda):
     assert a[1][101]["sssp"] == "replan" and \
         a[1][101]["pagerank"] == "overlay"
     assert counts["spmv_csr_seg"] > 0 and counts["spmv_ell"] > 0
+
+
+@pytest.mark.parametrize("family", ["fd", "rmat"])
+@pytest.mark.parametrize("balanced", [False, True])
+def test_sharded_plan_on_the_card(cuda, family, balanced):
+    """Four slabs on one card: one `spmv_ell` launch each, bit-identical
+    to the CSR plan on integer values, and through a checkpoint."""
+    import tempfile
+
+    from repro_torch import plan as tplan
+    from repro_torch.core.partition import rowblock_balanced
+    from repro_torch.distributed import row_mesh
+
+    csr, x = port_int_operands(family, 4096, 3, "plus_times", device=cuda)
+    x = torch.as_tensor(x, device=cuda)
+    mesh = row_mesh([str(cuda)] * 4)
+    part = rowblock_balanced(csr, 4) if balanced else None
+    p = tplan.compile(csr, mesh=mesh, partition=part, reorder="none",
+                      predictor="none")
+    want = tplan.compile(csr, format="csr", reorder="none",
+                         predictor="none", device=cuda).execute(x)
+    reset_launch_counts()
+    y = p.execute(x)
+    assert launch_counts()["spmv_ell"] == 4 and torch.equal(y, want)
+    with tempfile.TemporaryDirectory() as d:
+        tplan.save_plan(p, d)
+        back, _ = tplan.load_plan(d, mesh=mesh)
+        assert torch.equal(back.execute(x), want)
+
+
+def test_graph_cell_runs_through_the_kernels(cuda):
+    """A sweep's graph cell on the card: one launch an iteration, and
+    BFS points equal to the CPU's bytes (or_and is exact)."""
+    from repro_torch.telemetry import runner, sweep
+
+    info = {}
+    cells = runner.graph_cells((8,), ("fd", "rmat"), ("bfs",))
+    pts = runner.execute_cells(cells, runner.SweepConfig(device="cuda"),
+                               cell_info=info)
+    cpu = runner.execute_cells(cells, runner.SweepConfig(device="cpu"))
+    assert [runner.encode_point(p) for p in pts] == \
+        [runner.encode_point(p) for p in cpu]
+    got = {k: v["launches"] for k, v in info.items()}
+    assert got["graph|fd|8|none|-|1|-|-|bfs"]["spmv_ell"] == pts[0].n_iters
+    assert got["graph|rmat|8|none|-|1|-|-|bfs"]["spmv_csr_seg"] == \
+        pts[1].n_iters
+    assert isinstance(pts[0], sweep.GraphPoint)

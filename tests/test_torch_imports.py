@@ -74,10 +74,53 @@ SLICE_MODULES = {
         "FEATURE_NAMES", "features_for", "CostModel", "fit", "model_bytes",
         "model_digest", "LabelPoint", "label_matrix", "run_label_cell",
         "pick_winner", "evaluate", "save_corpus", "load_corpus",
-        "default_model", "set_default_model"),
+        "default_model", "set_default_model", "label_cells", "harvest",
+        "main"),
     "repro_torch.plan.serial": ("model_state", "model_from_state",
-                                "save_model", "load_model"),
+                                "save_model", "load_model", "plan_state",
+                                "plan_from_state", "save_plan",
+                                "load_plan"),
     "repro_torch.plan.compiler": ("REPLAY_NNZ_MAX", "REORDER_MARGIN"),
+    # the measurement slice: sweeps, runner, reports, graph telemetry,
+    # harvest, plan serialization, row-sharded plans, the traffic model
+    "repro_torch.telemetry.sweep": (
+        "MECHANISMS", "SweepPoint", "ScalingPoint", "GraphPoint",
+        "run_point", "run_mech_cell", "run_sweep", "reorder_sweep",
+        "run_scaling_cell", "scaling_sweep", "graph_sweep",
+        "run_graph_cell", "geometry_sweep"),
+    "repro_torch.telemetry.runner": (
+        "SweepCell", "SweepConfig", "sort_cells", "mech_cells",
+        "scaling_cells", "graph_cells", "run_cell", "encode_point",
+        "decode_point", "execute_cells", "build_cells", "main"),
+    "repro_torch.telemetry.report": (
+        "to_csv", "to_json", "to_markdown", "gap_report",
+        "plan_cache_report", "scaling_report", "scaling_gap_report",
+        "partition_gap_report", "graph_report", "graph_gap_report",
+        "reorder_gap_report"),
+    "repro_torch.graph.telemetry": ("iteration_counters",
+                                    "iteration_summaries",
+                                    "iteration_bounds"),
+    "repro_torch.kernels._layout": ("ShardedELL", "prepare_ell_shards",
+                                    "round_up"),
+    "repro_torch.distributed.spmv": ("row_mesh", "default_row_partition",
+                                     "spmv_row_sharded",
+                                     "spmv_row_sharded_prepared"),
+    "repro_torch.core.traffic": ("TrafficReport", "gather_policy",
+                                 "stream_policy", "col_blocked_policy",
+                                 "bell_policy"),
+}
+
+#: names each package exports, as the reference's `__init__` does
+PACKAGE_EXPORTS = {
+    "repro_torch.telemetry": (
+        "report", "runner", "sweep", "SweepCell", "SweepConfig",
+        "execute_cells", "mech_cells", "scaling_cells", "graph_cells",
+        "sort_cells", "ScalingPoint", "scaling_sweep", "scaling_report",
+        "scaling_gap_report", "GraphPoint", "graph_sweep", "graph_report",
+        "graph_gap_report", "plan_cache_report"),
+    "repro_torch.plan": ("save_plan", "load_plan", "plan_state",
+                         "plan_from_state", "harvest"),
+    "repro_torch.distributed": ("row_mesh", "spmv_row_sharded"),
 }
 
 
@@ -89,6 +132,16 @@ def test_streaming_and_serving_modules(module):
     missing = [n for n in SLICE_MODULES[module] if not hasattr(mod, n)]
     assert not missing, f"{module} lacks {missing}"
     assert (REPO / "src" / (module.replace(".", "/") + ".py")) in FILES
+
+
+@pytest.mark.parametrize("package", sorted(PACKAGE_EXPORTS))
+def test_package_exports(package):
+    import importlib
+
+    mod = importlib.import_module(package)
+    missing = [n for n in PACKAGE_EXPORTS[package] if not hasattr(mod, n)]
+    assert not missing, f"{package} lacks {missing}"
+    assert set(PACKAGE_EXPORTS[package]) <= set(mod.__all__)
 
 
 def test_port_reads_its_own_cost_model_copy():

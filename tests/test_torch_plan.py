@@ -3,7 +3,8 @@
 For the same matrix and options the port picks the same format, the
 same candidate and the same scoring mode, and its cache keys are the
 reference's strings.  Entry points default to the card and refuse to
-run without one; sharded plans (ROADMAP A10) refuse loudly.  The
+run without one; malformed sharding options are refused (sharded plans
+are held to the reference in `test_torch_distributed.py`).  The
 scoring itself is held to the reference in `test_torch_scoring.py`.
 """
 import numpy as np
@@ -219,10 +220,17 @@ def test_plan_refuses_x_on_another_device():
 
 
 @pytest.mark.parametrize("opts,item", [
-    ({"mesh": object()}, "A10"), ({"partition": object()}, "A10")])
+    ({"mesh": object()}, "RowMesh"), ({"partition": object()}, "RowPartition")])
 def test_options_outside_the_slice_raise(opts, item):
+    """Sharded plans are ported (`mesh=`, `partition=`); a mesh that is
+    not a `RowMesh`, or a partition that is not a `RowPartition`, is
+    refused."""
+    from repro_torch.distributed import row_mesh
+
     m = tg.fd_matrix(64, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    if "partition" in opts:
+        opts = dict(opts, mesh=row_mesh(["cpu"] * 2))
+    with pytest.raises(TypeError, match=item):
         tplan.compile(m, device="cpu", **opts)
 
 

@@ -511,11 +511,22 @@ def test_overlay_address_trace_extends_base(fmt, reorder):
     assert np.array_equal(tempty, tb)
 
 
-@pytest.mark.skip(reason="needs the port of repro.telemetry.report "
-                  "(plan_cache_report), which follows the sweep runner "
-                  "in ROADMAP A9")
 def test_plan_cache_report_renders_pre_streaming_stats():
-    """Counterpart of tests/test_streaming.py's case of the same name."""
+    """Counterpart of tests/test_streaming.py's case of the same name,
+    through both packages' `plan_cache_report`: the texts are equal."""
+    from repro.telemetry.report import plan_cache_report as ref_report
+    from repro_torch.telemetry.report import plan_cache_report
+
+    legacy = {"plans": 2, "hits": 5, "misses": 3, "evictions": 0,
+              "compiles": 3, "compile_s": 0.1}       # no streaming counters
+    out = plan_cache_report(legacy)
+    assert "overlays" in out and "KeyError" not in out
+    assert out == ref_report(legacy)
+    # windowed diff against a pre-streaming snapshot also renders
+    now = dict(legacy, overlays=2, swaps=1, delta_recompiles=1, hits=9)
+    out2 = plan_cache_report(now, before=legacy)
+    assert out2.splitlines()[-1].split(",")[-3:] == ["2", "1", "1"]
+    assert out2 == ref_report(now, before=legacy)
 
 
 # ---------------------------------------------------------------------------
