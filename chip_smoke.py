@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
-It builds the seven hand-written CUDA kernels from `src/repro_torch/
+It builds the nine hand-written CUDA kernels from `src/repro_torch/
 kernels/csrc/` and then runs these phases, one output line per step:
 
   device   the card's name and power limit (as nvidia-smi gives them),
@@ -53,8 +53,14 @@ kernels/csrc/` and then runs these phases, one output line per step:
            the same runs on the plain PyTorch path (use_pallas=False) on
            the card: same iteration counts, BFS/SSSP/CC values equal,
            PageRank within rtol 1e-3 (values near 2^-22); then
-           `execute_many` on real-valued X over both R-MAT PageRank
-           plans: two calls bit-identical, each row equal to `execute`;
+           `execute_many` on real-valued X (±inf in the ⊕-only
+           semirings) at k = 4 and k = 64 over the FD ELL plans
+           (min_plus, or_and) and the R-MAT HYB PageRank plan: two calls
+           bit-identical, each row bit-equal to `execute`, one launch of
+           each batched kernel a call; `execute_many_ms` beside the time
+           of k `execute` calls, the bound (the layout once, X and Y
+           once) and, under plus-times, `torch.sparse.mm` of the CSR
+           against the (n, k) block; and the R-MAT plain plan's replay;
   dia      FD PageRank at 2^16, where the compiler picks DIA, counted the
            same way, against its plain path;
   compile  the reference's default `plan.compile` (reorder="auto",
@@ -99,7 +105,9 @@ kernels/csrc/` and then runs these phases, one output line per step:
            plain version repeats its summation order, bit-identical on
            real values too, and NaN where its plain version is NaN when
            the first x tile, or a column its blocks drop, holds a
-           non-finite value;
+           non-finite value; the batched kernels (`spmm_ell`,
+           `spmm_csr_seg` with a (k, n) base) the same way at k = 4, and
+           at k = 64 bit for bit against the single-vector kernels' rows;
   time     per kernel at the main path's shapes: CUDA-event time of many
            launches, its plain version's time, a torch.sparse CSR
            product's time where one computes the same function, and the
@@ -118,7 +126,11 @@ kernels/csrc/` and then runs these phases, one output line per step:
            the events time the host's dispatch as much as the kernel),
            BELL on the blocked PageRank layout (and on the
            per-call layout of the dense tiles), with the padded
-           container's bytes beside it as `padded_bound_ms`;
+           container's bytes beside it as `padded_bound_ms`; `spmm_ell`
+           on the FD ELL layout at k = 64 and `spmm_csr_seg` on the
+           R-MAT heavy stream at k = 4 (X and Y, and the base, k times
+           the vectors' bytes; `torch.sparse.mm` against the (n, k)
+           block as the library call);
   serve    `serve_graph.GraphEngine` (64 lanes, compile queue 8, one
            compile a step) over the main path's FD and R-MAT graphs and
            its plan cache, launch counts set to 0 just before and read
@@ -253,6 +265,10 @@ TPU_KERNELS = {
     "spmv_bell": "src/repro/kernels/spmv_bell.py:50",
     "flash_attention": "src/repro/kernels/flash_attention.py:88",
     "paged_attention": "src/repro/kernels/paged_attention.py:86",
+    # the batched kernels replace no pallas_call: the reference's
+    # `execute_many` is its jnp kernel vmapped over X's rows
+    "spmm_ell": "src/repro/plan/plan.py:170",
+    "spmm_csr_seg": "src/repro/plan/plan.py:170",
 }
 #: the reference's `plan.compile` decisions on the same matrices
 #: (`PYTHONPATH=src JAX_PLATFORMS=cpu python3 tools/reference_decisions.py`;
@@ -437,26 +453,105 @@ def compare_runs(tag, kern, plain):
                 f"finite={int(np.isfinite(a.values).sum())}")
 
 
-def execute_many_replays(kern_plan, plain_plan, dev, reps):
-    """`execute_many` on real-valued X over the R-MAT PageRank plans: a
-    second call equals the first bit for bit and each row equals
-    `execute` of that row, through the kernels (one `execute` per row)
-    and through the plain oracle (ordered sums); then its time beside
-    that of k calls of `execute`."""
+def same_bits(a, b) -> bool:
+    """Bit-equal float32 tensors (NaN payloads and -0.0 included)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def batch_x(sr_name, k, n, seed, dev):
+    """Real-valued X in the semiring's domain with +inf in every 50th
+    column (and -inf beside it where the domain has negatives)."""
+    gen = torch.Generator().manual_seed(seed)
+    X = torch.rand((k, n), generator=gen)
+    if sr_name == "plus_times":
+        X = X * 2 - 1
+    else:
+        X[:, ::50] = float("inf")
+        if sr_name == "min_plus":
+            X[:, 1::50] = float("-inf")
+    return X.to(dev)
+
+
+def plan_layout_bytes(plan) -> int:
+    """Bytes of an ell or hyb plan's layout that one SpMV must read: the
+    (W, n) slab, and a HYB's heavy vals and cols."""
+    p = plan.prep
+    if plan.format_name == "ell":
+        return layout_bytes(p.data, p.idx)
+    return layout_bytes(p.light.data, p.light.idx, p.heavy.vals,
+                        p.heavy.cols)
+
+
+def execute_many_replays(cases, plain_plan, dev, reps, ks=(4, 64)):
+    """`execute_many` on real-valued X over the main path's plans
+    (`cases`: (tag, plan) -- the FD ELL plans under min_plus and or_and
+    and the R-MAT HYB PageRank plan), at each k of `ks`: a second call
+    bit-equal to the first, each row bit-equal to `execute` of that row
+    (one launch of each batched kernel a call), its time beside that of
+    k calls of `execute` and the bound (the layout once, X and Y once,
+    at 3.35 TB/s), and under plus-times `torch.sparse.mm` of the CSR
+    against the (n, k) block; the plain oracle replays at k = 4.
+    Returns {(tag, k): line's numbers}."""
+    from repro_torch import kernels as K
+
+    out = {}
+    for tag, plan in cases:
+        sr = plan.semiring
+        lib = None
+        if sr == "plus_times":
+            c = plan.csr
+            A = sparse_csr(*_coo(c), c.n_rows, c.n_cols)
+        for k in ks:
+            X = batch_x(sr, k, plan.n_cols, 5 + k, dev)
+            K.reset_launch_counts()
+            Y = plan.execute_many(X)
+            launches = {n: v for n, v in K.launch_counts().items() if v}
+            same = same_bits(plan.execute_many(X), Y)
+            rows = all(same_bits(plan.execute(X[c]), Y[c]) for c in range(k))
+            want = {"ell": {"spmm_ell": 1},
+                    "hyb": {"spmm_ell": 1, "spmm_csr_seg": 1}}[
+                plan.format_name] if dev.type == "cuda" else {}
+            check(same and rows and launches == want,
+                  f"execute_many {tag} k={k}: replay equal {same}, rows "
+                  f"equal execute {rows}, launches {launches}")
+            n_rep = max(reps // 10, 2)
+            many_ms = time_ms(lambda: plan.execute_many(X), n_rep, dev)
+            loop_ms = time_ms(lambda: [plan.execute(X[c]) for c in range(k)],
+                              n_rep, dev)
+            # the wrappers' interleaved copy of X, alone
+            copy_ms = time_ms(lambda: K.interleave_columns(X), n_rep, dev)
+            need = plan_layout_bytes(plan) + 4 * k * (plan.n_cols
+                                                      + plan.n_rows)
+            bound = 1e3 * need / HBM_BYTES_PER_S
+            if sr == "plus_times":
+                Xn = X.t().contiguous()
+                lib = time_ms(lambda: torch.sparse.mm(A, Xn), n_rep, dev)
+            out[(tag, k)] = dict(ms=many_ms, loop_ms=loop_ms, bound_ms=bound,
+                                 library_ms=lib, interleave_ms=copy_ms)
+            log(f"execute_many {tag} {plan.format_name} {sr}, k={k} real X: "
+                f"replay bit-identical {same}, rows == execute {rows}, "
+                f"launches {json.dumps(launches)}; execute_many_ms="
+                f"{many_ms:.4f} k_execute_ms={loop_ms:.4f} "
+                f"({loop_ms / many_ms:.2f}x) interleave_ms={copy_ms:.4f} "
+                f"bound_bytes={need} bound_ms="
+                f"{bound:.4f} ({many_ms / bound:.2f}x bound) library_ms="
+                + ("null" if lib is None else
+                   f"{lib:.4f} (torch.sparse.mm of the CSR, (n, k) block)"))
+            del X, Y
     gen = torch.Generator().manual_seed(5)
-    X = (torch.rand((4, kern_plan.n_cols), generator=gen) * 2 - 1).to(dev)
-    for tag, plan in (("kernels", kern_plan), ("plain", plain_plan)):
-        Y = plan.execute_many(X)
-        same = torch.equal(plan.execute_many(X), Y)
-        rows = all(torch.equal(plan.execute(X[k]), Y[k]) for k in range(4))
-        check(same and rows, f"execute_many rmat {tag}: replay equal "
-              f"{same}, rows equal execute {rows}")
-        many_ms = time_ms(lambda: plan.execute_many(X), max(reps // 10, 2),
-                          dev)
-        one_ms = time_ms(lambda: plan.execute(X[0]), max(reps // 10, 2), dev)
-        log(f"execute_many rmat pagerank {tag}, k=4 real X: replay "
-            f"bit-identical {same}, rows == execute {rows}; "
-            f"execute_many_ms={many_ms:.4f} execute_ms={one_ms:.4f}")
+    X = (torch.rand((4, plain_plan.n_cols), generator=gen) * 2 - 1).to(dev)
+    Y = plain_plan.execute_many(X)
+    same = torch.equal(plain_plan.execute_many(X), Y)
+    rows = all(torch.equal(plain_plan.execute(X[k]), Y[k]) for k in range(4))
+    check(same and rows, f"execute_many rmat plain: replay equal {same}, "
+          f"rows equal execute {rows}")
+    many_ms = time_ms(lambda: plain_plan.execute_many(X), max(reps // 10, 2),
+                      dev)
+    log(f"execute_many rmat pagerank plain, k=4 real X: replay "
+        f"bit-identical {same}, rows == execute {rows}; "
+        f"execute_many_ms={many_ms:.4f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1376,7 +1471,7 @@ def compare(errs, kname, label, got, want, exact):
     errs[kname] = max(errs[kname], err)
     check(ok, f"kernel {kname} {label}: differs from its plain version "
               f"(max abs err {err:.3g})")
-    log(f"kernel {kname} {label}: n={got.shape[0]} "
+    log(f"kernel {kname} {label}: n={got.shape[-1]} "
         f"{'bit-identical' if exact else f'rtol {REAL_RTOL}'} ok={ok} "
         f"max_abs_err={err:.3g}")
 
@@ -1498,7 +1593,68 @@ def kernel_vs_plain(K, SR, plans, dev):
                     K.spmv_csr_seg(*args, base=base),
                     K.spmv_csr_seg_plain(*args, base=base),
                     exact=kind == "int" or name != "plus_times")
+
+    # batched ELL: FD's semiring layouts and the R-MAT PageRank light slab
+    # at k = 4 against the plain version, and each layout at k = 64
+    # against the single-vector kernel row by row, bit for bit
+    for (fam, a), lp in ell_cases[:4]:
+        sr_name = plans[(fam, a)].semiring
+        kinds = ("int", "real") if sr_name == "plus_times" else ("real",)
+        for kind in kinds:
+            data = int_values(lp.data, sr_name, gen) if kind == "int" \
+                else lp.data
+            X = torch.stack([x_for(sr_name, lp.n_cols, gen, dev, kind)
+                             for _ in range(4)])
+            args = (data, lp.idx, X, SR[sr_name])
+            compare(errs, "spmm_ell", f"{fam} {a} {sr_name} {kind} k=4",
+                    K.spmm_ell(*args), K.spmv_ell_plain(*args),
+                    exact=kind == "int" or sr_name != "plus_times")
+        X = batch_x(sr_name, 64, lp.n_cols, 3, dev)
+        batch_vs_rows(
+            "spmm_ell", f"{fam} {a} {sr_name} k=64",
+            K.spmm_ell(lp.data, lp.idx, X, SR[sr_name]),
+            [K.spmv_ell(lp.data, lp.idx, X[c], SR[sr_name])
+             for c in range(64)])
+
+    # batched segmented CSR: the R-MAT PageRank (plus_times, max_times)
+    # and SSSP (min_plus) heavy streams with a (k, n) base at k = 4
+    # against the plain version; at k = 64 against the single-vector
+    # kernel row by row, bit for bit
+    for a, name, kind in (("pagerank", "plus_times", "int"),
+                          ("pagerank", "plus_times", "real"),
+                          ("pagerank", "max_times", "int"),
+                          ("sssp", "min_plus", "real")):
+        hp = plans[("rmat", a)].prep.heavy
+        vals = int_values(hp.vals, name, gen) if kind == "int" else hp.vals
+        q = dataclasses.replace(hp, vals=vals)
+        X = torch.stack([x_for(name, hp.n_cols, gen, dev, kind)
+                         for _ in range(4)])
+        base = torch.stack([x_for(name, hp.n_rows, gen, dev, kind)
+                            for _ in range(4)])
+        compare(errs, "spmm_csr_seg", f"rmat {a} {name} {kind} k=4",
+                K.spmm_csr_seg(q, X, SR[name], base=base),
+                K.spmv_csr_seg_plain(q, X, SR[name], base=base),
+                exact=kind == "int" or name != "plus_times")
+    for a in ("pagerank", "sssp"):
+        hp, sr_name = plans[("rmat", a)].prep.heavy, plans[("rmat", a)].semiring
+        X = batch_x(sr_name, 64, hp.n_cols, 4, dev)
+        base = batch_x(sr_name, 64, hp.n_rows, 6, dev)
+        batch_vs_rows(
+            "spmm_csr_seg", f"rmat {a} {sr_name} k=64",
+            K.spmm_csr_seg(hp, X, SR[sr_name], base=base),
+            [K.spmv_csr_seg(hp, X[c], SR[sr_name], base=base[c])
+             for c in range(64)])
     return errs
+
+
+def batch_vs_rows(kname, label, got, rows) -> None:
+    """A batched kernel's (k, n) result against the single-vector
+    kernel's rows, bit for bit."""
+    ok = same_bits(got, torch.stack(rows))
+    check(ok, f"kernel {kname} {label}: differs from the single-vector "
+              "kernel's rows")
+    log(f"kernel {kname} {label}: rows == single-vector kernel bit for "
+        f"bit: {ok}")
 
 
 # ---------------------------------------------------------------------------
@@ -1693,6 +1849,20 @@ def timings(K, SR, plans, dev, reps, adjacency=None):
               ell_bytes, 2 * W * lp.n_rows, c.nnz, c.n_rows,
               (lp.data, lp.idx), f"fd bfs layout, {sr_name}, W={W}", key)
 
+    # batched ELL at k = 64 on the same layout under plus-times: the slab
+    # once, X and Y once; torch.sparse.mm of the CSR against the (n, k)
+    # block as the library call
+    k = 64
+    X = torch.rand((k, lp.n_cols), generator=gen).to(dev)
+    Xn = X.t().contiguous()
+    entry("spmm_ell", lambda: K.spmm_ell(lp.data, lp.idx, X, pt),
+          lambda: K.spmv_ell_plain(lp.data, lp.idx, X, pt),
+          lambda: torch.sparse.mm(A, Xn),
+          layout_bytes(lp.data, lp.idx) + 4 * k * (lp.n_cols + lp.n_rows),
+          2 * k * W * lp.n_rows, c.nnz, c.n_rows, (lp.data, lp.idx),
+          f"fd bfs layout, plus_times, W={W}, k={k}")
+    del X, Xn
+
     # padded CSR: each row walks its own slots, so no padding slot is read
     plan = plans[("fd", "pagerank")]
     cp, c = plan.prep, plan.csr
@@ -1747,6 +1917,32 @@ def timings(K, SR, plans, dev, reps, adjacency=None):
         f"{probe_ms:.4f}, {probe_ms / out['spmv_csr_seg']['ms']:.3f} of the "
         f"real stream's")
     del probe
+
+    # batched segmented CSR at k = 4 on the same stream: the stream once,
+    # X, the (k, n) base and Y once; each pass's device time traced
+    k = 4
+    X = torch.rand((k, hp.n_cols), generator=gen).to(dev)
+    B = torch.rand((k, hp.n_rows), generator=gen).to(dev)
+    Xn = X.t().contiguous()
+    entry("spmm_csr_seg", lambda: K.spmm_csr_seg(hp, X, pt, base=B),
+          lambda: K.spmv_csr_seg_plain(hp, X, pt, base=B),
+          lambda: torch.sparse.mm(A, Xn),
+          8 * hyb.heavy_nnz + 4 * k * hp.n_cols + 8 * k * hp.n_rows,
+          k * (2 * hyb.heavy_nnz + hp.n_rows), hyb.heavy_nnz, hp.n_rows,
+          (hp.vals, hp.cols, hp.row_ptr, hp.win_row, hp.split_rows),
+          f"rmat pagerank heavy stream, plus_times, k={k}")
+    passes = {"spmm_seg_window_kernel": "pass 1 (windows)",
+              "spmm_seg_split_kernel": "pass 2 (split rows)"}
+    traced = trace_ms(lambda: K.spmm_csr_seg(hp, X, pt, base=B), reps, dev,
+                      passes)
+    for kname, what in passes.items():
+        t = traced[kname]
+        log(f"time spmm_csr_seg k={k} {what}, traced: kernel_ms="
+            + ("not measured" if t is None else f"{t:.4f}"))
+    out["spmm_csr_seg"].update(
+        pass1_ms=traced["spmm_seg_window_kernel"],
+        pass2_ms=traced["spmm_seg_split_kernel"])
+    del X, B, Xn
     return out
 
 
@@ -1887,7 +2083,7 @@ class StepTrace:
         recs = device_records(self.prof)
         split = {"spmv": 0.0, "other": 0.0, "copies": 0.0}
         for key, (_, t) in recs.items():
-            part = ("spmv" if "spmv_" in key else
+            part = ("spmv" if is_spmv(key) else
                     "copies" if key.startswith(("Memcpy", "Memset"))
                     else "other")
             split[part] += t / 1e3
@@ -1899,13 +2095,18 @@ class StepTrace:
             launches={k: now[k] - self.launches[k] for k in now
                       if now[k] > self.launches[k]},
             spmv_records={short_kernel(k): c for k, (c, _) in recs.items()
-                          if "spmv_" in k},
+                          if is_spmv(k)},
             top_other=[(short_kernel(k), c, round(t / 1e3, 1))
                        for k, (c, t) in sorted(
                            recs.items(), key=lambda kv: -kv[1][1])
-                       if "spmv_" not in k][:8],
+                       if not is_spmv(k)][:8],
             compiles=eng.plan_cache.stats()["compiles"] - self.compiles)
         del self.prof
+
+
+def is_spmv(key: str) -> bool:
+    """A trace record of one of the SpMV / SpMM kernels."""
+    return "spmv_" in key or "spmm_" in key
 
 
 def short_kernel(key: str) -> str:
@@ -2182,7 +2383,7 @@ def run_serve(args, dev, K, P, SG, D, drivers, fd_matrix, rmat_matrix,
     eng, tags, wall = run.eng, run.tags, run.wall
     log(f"serve launches {json.dumps(counts)}")
     if dev.type == "cuda":
-        for k in ("spmv_ell", "spmv_csr", "spmv_csr_seg"):
+        for k in ("spmm_ell", "spmv_csr", "spmm_csr_seg"):
             check(counts[k] > 0, f"serve path launched {k} no time")
     after = cache.stats()
     s = eng.stats()
@@ -2761,9 +2962,11 @@ def main(argv=None) -> int:
         # path's iterations
         tiny = rmat_matrix(256, device=dev)
         for fmt in ("dia", "bell", "ell", "csr", "hyb"):
-            compile_plan(tiny, format=fmt, reorder="none", predictor="none",
-                         device=dev).execute(
-                torch.ones(256, device=dev))
+            p = compile_plan(tiny, format=fmt, reorder="none",
+                             predictor="none", device=dev)
+            p.execute(torch.ones(256, device=dev))
+            if fmt == "hyb":        # spmm_ell and spmm_csr_seg
+                p.execute_many(torch.ones(2, 256, device=dev))
     else:
         log("device cpu rehearsal: plain versions only, no kernels")
 
@@ -2812,8 +3015,11 @@ def main(argv=None) -> int:
         for name in ANALYTICS:
             report_run("plain", fam, name, *plain[fam][name])
         compare_runs(f"main {fam}", kern[fam], plain[fam])
-    execute_many_replays(kern["rmat"]["pagerank"][0].plan,
-                         plain["rmat"]["pagerank"][0].plan, dev, args.reps)
+    execute_many_replays(
+        [("fd sssp", kern["fd"]["sssp"][0].plan),
+         ("fd bfs", kern["fd"]["bfs"][0].plan),
+         ("rmat pagerank", kern["rmat"]["pagerank"][0].plan)],
+        plain["rmat"]["pagerank"][0].plan, dev, args.reps)
 
     # -- DIA path -------------------------------------------------------------
     nd = 1 << args.dia_log2n

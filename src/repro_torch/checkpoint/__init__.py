@@ -3,7 +3,8 @@ numpy arrays (counterpart of the part of `repro.checkpoint` that the
 shipped cost model needs), with its own MessagePack codec.
 
   manager        CheckpointManager: committed-step save and schema-free
-                 `restore_any`, zlib shards
+                 `restore_any`; writes zlib shards, reads zlib and,
+                 where `zstandard` imports, zstd
   msgpack_codec  packb / unpackb for the manifests and record leaves
 """
 from .manager import CODEC, CheckpointManager, shard_filename

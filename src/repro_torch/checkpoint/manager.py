@@ -16,8 +16,12 @@ or the `msgpack` package.  One directory per step:
 
 Keys are the reference's paths (`['a']['b']`, any characters but `'`,
 so the sweep runner's `|`-joined cell keys too), so a tree written here
-has the reference's manifest and shard bytes, and one written by the
-reference with its zlib codec (the shipped artifact's) restores here.
+has the reference's manifest and shard bytes.  Writes use zlib (the
+shipped artifact's codec).  Reads take the codec the manifest names,
+from the reference's registry: zlib always, zstd (`shard_NNNNN.bin.zst`,
+the reference's default wherever the optional `zstandard` imports) when
+`zstandard` imports here too; a codec that is not available raises the
+reference's `ModuleNotFoundError`, naming it.
 Saves are synchronous and single-host (`wait` has nothing to join);
 after each save only the newest `keep` committed steps stay, as in the
 reference.
@@ -34,12 +38,33 @@ import numpy as np
 
 from .msgpack_codec import packb, unpackb
 
-CODEC = "zlib"
+try:
+    import zstandard as zstd
+except ModuleNotFoundError:          # optional, as in the reference
+    zstd = None
+
+CODEC = "zlib"                       # what `save` writes
+#: codec name -> decompress, for the codecs that can be read here
+_DECOMPRESS = {"zlib": zlib.decompress}
+if zstd is not None:
+    _DECOMPRESS["zstd"] = lambda b: zstd.ZstdDecompressor().decompress(b)
+#: shard-file extensions per codec name, whether or not it reads here
+_EXTS = {"zstd": "zst", "zlib": "zlib"}
 _DICT_KEY = re.compile(r"\['([^']*)'\]")
 
 
-def shard_filename(shard_id: int) -> str:
-    return f"shard_{shard_id:05d}.bin.{CODEC}"
+def shard_filename(shard_id: int, codec: str = CODEC) -> str:
+    return f"shard_{shard_id:05d}.bin.{_EXTS.get(codec, codec)}"
+
+
+def decompressor(codec: str):
+    """The decompress function of `codec`; the reference's error for a
+    codec that is not available here."""
+    if codec not in _DECOMPRESS:
+        raise ModuleNotFoundError(
+            f"checkpoint was written with codec {codec!r}, which is not "
+            f"available here (have: {sorted(_DECOMPRESS)})")
+    return _DECOMPRESS[codec]
 
 
 def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -139,9 +164,7 @@ class CheckpointManager:
         step_dir, step = self._step_dir(step)
         manifest = self.load_manifest(step)
         codec = manifest.get("codec", "zstd")
-        if codec != CODEC:
-            raise ValueError(f"checkpoint was written with codec {codec!r}; "
-                             f"this reader has {CODEC!r}")
+        decompress = decompressor(codec)     # refused before any read
         shards: Dict[int, bytes] = {}
         tree: Dict = {}
         for e in manifest["entries"]:
@@ -152,9 +175,9 @@ class CheckpointManager:
                                  f"trees only; cannot rebuild node {key!r}")
             sid = e["shard"]
             if sid not in shards:
-                path = os.path.join(step_dir, shard_filename(sid))
+                path = os.path.join(step_dir, shard_filename(sid, codec))
                 with open(path, "rb") as f:
-                    shards[sid] = zlib.decompress(f.read())
+                    shards[sid] = decompress(f.read())
             buf = shards[sid][e["offset"]:e["offset"] + e["nbytes"]]
             leaf = np.frombuffer(buf, np.dtype(e["dtype"])) \
                 .reshape(e["shape"]).copy()
@@ -165,4 +188,5 @@ class CheckpointManager:
         return tree, step
 
 
-__all__ = ["CheckpointManager", "CODEC", "shard_filename"]
+__all__ = ["CheckpointManager", "CODEC", "shard_filename",
+           "decompressor"]

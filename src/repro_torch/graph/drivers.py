@@ -11,7 +11,9 @@ Each analytic is an operand builder (host-side, the reference's numpy),
 a stepper (the per-iteration state machine) and the SpMV, which the
 driver owns: single-source runs call `plan.execute` -- one hand-written
 kernel launch per iteration on a CUDA plan -- and multi-source runs
-batch through `plan.execute_many`.  The steppers keep their state as
+batch through `plan.execute_many` -- one launch of each batched kernel
+an iteration on an ELL, HYB or segmented-CSR plan, whatever the number
+of sources.  The steppers keep their state as
 tensors on the plan's device and read one scalar back per iteration,
 the progress value that decides convergence.
 

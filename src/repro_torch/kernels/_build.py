@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("spmv_dia", "spmv_ell", "spmv_csr", "spmv_csr_seg", "spmv_bell",
-           "flash_attention", "paged_attention")
+           "spmm_ell", "spmm_csr_seg", "flash_attention", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -4,7 +4,10 @@ Counterpart of `repro.kernels._layout`.  Every format gets a `prepare_*`
 function that does all matrix-side work once (at plan compile) and a
 `spmv_*_prepared` runner that does none: it validates x and calls the
 format's kernel wrapper, which launches the CUDA kernel for CUDA
-tensors and runs the plain version for CPU tensors.
+tensors and runs the plain version for CPU tensors.  ELL, segmented
+CSR and HYB also have a batched runner, `spmm_*_prepared`, for a
+(k, n_cols) batch: one launch of each batched kernel whatever k is,
+each row as its `spmv_*_prepared` gives it, bit for bit.
 
 The padding here is the port's own.  The reference pads to the TPU's
 tiles (128-row blocks, widths rounded up to 128 lanes); on the card
@@ -33,9 +36,9 @@ from repro_torch.graph.semiring import Semiring, resolve
 
 from .spmv_bell import BN as BELL_BN, spmv_bell
 from .spmv_csr import spmv_csr
-from .spmv_csr_seg import MAX_WINDOW, WINDOW, spmv_csr_seg
+from .spmv_csr_seg import MAX_WINDOW, WINDOW, spmm_csr_seg, spmv_csr_seg
 from .spmv_dia import spmv_dia
-from .spmv_ell import spmv_ell
+from .spmv_ell import interleave_columns, spmm_ell, spmv_ell
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -46,6 +49,12 @@ def _check_x(x: torch.Tensor, n_cols: int) -> None:
     if x.dim() != 1 or x.shape[0] != n_cols:
         raise ValueError(f"x must have shape ({n_cols},), got "
                          f"{tuple(x.shape)}")
+
+
+def _check_X(X: torch.Tensor, n_cols: int) -> None:
+    if X.dim() != 2 or X.shape[1] != n_cols:
+        raise ValueError(f"X must have shape (k, {n_cols}), got "
+                         f"{tuple(X.shape)}")
 
 
 def _check_fill(container, sr: Semiring) -> None:
@@ -188,6 +197,13 @@ def spmv_ell_prepared(prep: PreparedELL, x: torch.Tensor,
                       semiring=None) -> torch.Tensor:
     _check_x(x, prep.n_cols)
     return spmv_ell(prep.data, prep.idx, x, resolve(semiring))
+
+
+def spmm_ell_prepared(prep: PreparedELL, X: torch.Tensor, semiring=None,
+                      xt=None) -> torch.Tensor:
+    """Y[c] = `spmv_ell_prepared(prep, X[c])` for a (k, n_cols) batch."""
+    _check_X(X, prep.n_cols)
+    return spmm_ell(prep.data, prep.idx, X, resolve(semiring), xt=xt)
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +412,14 @@ def spmv_csr_seg_prepared(prep: PreparedSegCSR, x: torch.Tensor,
     return spmv_csr_seg(prep, x, resolve(semiring), base=base)
 
 
+def spmm_csr_seg_prepared(prep: PreparedSegCSR, X: torch.Tensor,
+                          semiring=None, base=None, xt=None) -> torch.Tensor:
+    """Y[c] = `spmv_csr_seg_prepared(prep, X[c], base=base[c])` for a
+    (k, n_cols) batch and a (k, n_rows) base."""
+    _check_X(X, prep.n_cols)
+    return spmm_csr_seg(prep, X, resolve(semiring), base=base, xt=xt)
+
+
 @dataclasses.dataclass(frozen=True)
 class PreparedHYB:
     """The ELL kernel over the light rows, then the segmented kernel over
@@ -434,14 +458,27 @@ def spmv_hyb_prepared(prep: PreparedHYB, x: torch.Tensor,
     return spmv_csr_seg_prepared(prep.heavy, x, semiring, base=y_light)
 
 
+def spmm_hyb_prepared(prep: PreparedHYB, X: torch.Tensor,
+                      semiring=None) -> torch.Tensor:
+    """Y[c] = `spmv_hyb_prepared(prep, X[c])` for a (k, n_cols) batch: the
+    batched ELL kernel over the light rows, then the batched segmented
+    kernel with that (k, n_rows) result as its base; both gather from
+    one interleaved copy of X."""
+    _check_X(X, prep.n_cols)
+    xt = interleave_columns(X)
+    Y_light = spmm_ell_prepared(prep.light, X, semiring, xt=xt)
+    return spmm_csr_seg_prepared(prep.heavy, X, semiring, base=Y_light,
+                                 xt=xt)
+
+
 __all__ = [
     "ceil_div",
     "PreparedDIA", "prepare_dia", "spmv_dia_prepared",
     "PreparedBELL", "prepare_bell", "spmv_bell_prepared",
-    "PreparedELL", "prepare_ell", "spmv_ell_prepared",
+    "PreparedELL", "prepare_ell", "spmv_ell_prepared", "spmm_ell_prepared",
     "round_up", "ShardedELL", "prepare_ell_shards",
     "PaddedCSR", "prepare_csr", "spmv_csr_prepared",
     "PreparedSegCSR", "segment_stream", "prepare_csr_seg",
-    "spmv_csr_seg_prepared",
-    "PreparedHYB", "prepare_hyb", "spmv_hyb_prepared",
+    "spmv_csr_seg_prepared", "spmm_csr_seg_prepared",
+    "PreparedHYB", "prepare_hyb", "spmv_hyb_prepared", "spmm_hyb_prepared",
 ]

@@ -11,6 +11,12 @@ rows of one slot:
 Padding slots hold the semiring's absorbing value.  Kernel and plain
 version fold the slots in order w = 0 .. W-1 from the ⊕-identity and so
 agree bit for bit.
+
+Batched: `spmm_ell` (kernel `csrc/spmm_ell.cu`) computes the same
+function for every row of a (k, n_cols) batch X in one launch, each
+column folded in the single-vector kernel's order, so `Y[c]` equals
+`spmv_ell(..., X[c], ...)` bit for bit; the plain version takes the
+batch as it is.
 """
 from __future__ import annotations
 
@@ -23,10 +29,11 @@ from . import _build
 
 def spmv_ell_plain(data: torch.Tensor, idx: torch.Tensor, x: torch.Tensor,
                    sr: Semiring) -> torch.Tensor:
-    """Plain PyTorch version on the slot-major (W, n_rows) layout."""
-    y = sr.full((data.shape[1],), data)
+    """Plain PyTorch version on the slot-major (W, n_rows) layout; `x`
+    (n_cols,) or a (k, n_cols) batch, whose rows fold as each alone."""
+    y = sr.full(x.shape[:-1] + (data.shape[1],), data)
     for w in range(data.shape[0]):
-        y = sr.add(y, sr.mul(data[w], x[idx[w].long()]))
+        y = sr.add(y, sr.mul(data[w], x[..., idx[w].long()]))
     return y
 
 
@@ -57,6 +64,50 @@ def spmv_ell(data: torch.Tensor, idx: torch.Tensor, x: torch.Tensor,
 
 
 spmv_ell.launches = 0
+
+
+def interleave_columns(X: torch.Tensor) -> torch.Tensor:
+    """The (n_cols, k) column-interleaved copy of a (k, n_cols) batch
+    that the batched kernels gather from: the k values of one column
+    index side by side."""
+    return X.t().contiguous()
+
+
+def spmm_ell(data: torch.Tensor, idx: torch.Tensor, X: torch.Tensor,
+             sr: Semiring, xt=None) -> torch.Tensor:
+    """Y[c] = A (⊕,⊗) X[c] for every row c of a (k, n_cols) batch, as
+    (k, n_rows), on the slot-major layout of `spmv_ell`.  CUDA tensors
+    launch the batched kernel once, whatever k is, gathering from `xt`
+    (`interleave_columns(X)`, made here when not given); CPU tensors run
+    the plain version."""
+    if not _build.on_cuda(data, idx, X, xt):
+        return spmv_ell_plain(data, idx, X, sr)
+    _build.require(data, torch.float32, "data", 2)
+    _build.require(idx, torch.int32, "idx", 2)
+    _build.require(X, torch.float32, "X", 2)
+    if idx.shape != data.shape:
+        raise ValueError("spmm_ell: idx does not match data")
+    width, n_rows = data.shape
+    k = X.shape[0]
+    Y = torch.empty((k, n_rows), dtype=torch.float32, device=X.device)
+    if n_rows == 0 or k == 0:
+        return Y
+    if xt is None:
+        xt = interleave_columns(X)
+    _build.require(xt, torch.float32, "xt", 2)
+    if xt.shape != (X.shape[1], k):
+        raise ValueError("spmm_ell: xt is not X's interleaved copy")
+    fn = _build.function("spmm_ell", "spmm_ell_f32",
+                         [_build.PTR] * 4 + [_build.INT] * 4 + [_build.PTR])
+    with torch.cuda.device(X.device):
+        rc = fn(data.data_ptr(), idx.data_ptr(), xt.data_ptr(), Y.data_ptr(),
+                n_rows, width, k, sr.code, _build.stream_of(X))
+    _build.check(rc, "spmm_ell", "spmm_ell launch")
+    spmm_ell.launches += 1
+    return Y
+
+
+spmm_ell.launches = 0
 
 
 def spmv_ell_torch(ell, x: torch.Tensor, sr: Semiring) -> torch.Tensor:

@@ -4,7 +4,8 @@
     p = plan.compile(csr)            # analyze -> format -> layout (card)
     p = plan.compile(csr, reorder="rcm")   # reorder first; x, y unchanged
     y = p.execute(x)                 # one hand-written kernel per SpMV
-    Y = p.execute_many(X)            # one execute per row of X
+    Y = p.execute_many(X)            # one batched SpMM (ell, hyb,
+                                     # csr-seg), rows equal to execute
     ov = plan.overlay(p, delta)      # p + an EdgeDelta, served warm
     y = ov.execute(x)                # base SpMV, then the O(delta) pass
     plan.save_plan(p, ckpt_dir)      # and `load_plan(ckpt_dir)` after a

@@ -14,10 +14,13 @@ CPU plan.
                        plans run the container's plain PyTorch oracle
                        instead; the option keeps the reference's name so
                        cache keys agree);
-  * `execute_many(X)`  batched multi-vector SpMV (SpMM): one `execute`
-                       per row of X on a kernel plan (each row equals
-                       `execute` bit for bit); the container's plain
-                       oracle over the whole batch on a
+  * `execute_many(X)`  batched multi-vector SpMV (SpMM): on an 'ell',
+                       'hyb' or 'csr-seg' kernel plan one launch of each
+                       batched kernel (`spmm_ell`, `spmm_csr_seg`)
+                       whatever k is, on the other kernel plans one
+                       `execute` per row of X -- either way each row
+                       equals `execute` bit for bit; the container's
+                       plain oracle over the whole batch on a
                        `use_pallas=False` plan;
   * `power_iteration`  repeated `execute` with normalisation;
   * `address_trace(machine)`  the SpMV demand-address trace of the
@@ -50,6 +53,9 @@ _RUNNERS = {"dia": kl.spmv_dia_prepared, "bell": kl.spmv_bell_prepared,
             "ell": kl.spmv_ell_prepared,
             "csr": kl.spmv_csr_prepared, "csr-seg": kl.spmv_csr_seg_prepared,
             "hyb": kl.spmv_hyb_prepared}
+#: the formats whose batched kernels serve `execute_many`
+_BATCHED = {"ell": kl.spmm_ell_prepared, "csr-seg": kl.spmm_csr_seg_prepared,
+            "hyb": kl.spmm_hyb_prepared}
 
 
 def container_spmv(container, x: torch.Tensor, sr) -> torch.Tensor:
@@ -145,25 +151,35 @@ class SpmvPlan:
 
     def execute_many(self, X) -> torch.Tensor:
         """Batched SpMV: Y[k] = A (⊕,⊗) X[k] for a (k, n_cols) batch, in
-        the original order.  A kernel plan runs `execute` once per row
-        of X, in order, so Y[k] equals `execute(X[k])` bit for bit; a
-        `use_pallas=False` plan runs the container's oracle over the
-        whole batch (gathered through `col_perm` and scattered through
-        `inv_row_perm` at once), whose sums are ordered too."""
+        the original order; the whole batch is gathered through
+        `col_perm` and scattered through `inv_row_perm` at once.  An
+        'ell', 'hyb' or 'csr-seg' kernel plan runs its batched kernels
+        once (the reference's one fused SpMM), every other kernel plan
+        `execute` once per row of X, in order; either way Y[k] equals
+        `execute(X[k])` bit for bit.  A `use_pallas=False` plan runs the
+        container's oracle over the whole batch, whose sums are ordered
+        too."""
         X = self._input(X)
         if X.dim() != 2 or X.shape[1] != self.n_cols:
             raise ValueError(f"execute_many expects (k, {self.n_cols}), "
                              f"got {tuple(X.shape)}")
+        sr = resolve(self.semiring)
         if self.use_pallas:
             X = X.contiguous()
             if X.shape[0] == 0:
                 return X.new_empty((0, self.n_rows))
-            return torch.stack([self.execute(x) for x in X])
-        sr = resolve(self.semiring)
+            batched = _BATCHED.get(self.format_name)
+            if batched is None:
+                return torch.stack([self.execute(x) for x in X])
+
+            def run(Xp):
+                return batched(self.prep, Xp, semiring=sr)
+        else:
+            def run(Xp):
+                return container_spmv(self.container, Xp, sr)
         if self.reordering is None:
-            return container_spmv(self.container, X, sr)
-        Y = container_spmv(self.container, self.reordering.permute_x(X), sr)
-        return self.reordering.restore_y(Y)
+            return run(X)
+        return self.reordering.restore_y(run(self.reordering.permute_x(X)))
 
     def power_iteration(self, x0, n_iters: int = 16):
         """Dominant-eigenpair estimate by repeated `execute`.  Returns

@@ -291,7 +291,8 @@ def save_plan(plan, ckpt_dir: str, step: int = 0,
 def load_plan(ckpt_dir: str, step: Optional[int] = None, mesh=None,
               device=None) -> Tuple[object, int]:
     """(plan, step) from a checkpoint written by `save_plan` -- or by the
-    reference's.  `mesh=` rebinds a row-sharded plan; `device` as in
+    reference's, under zlib or (where `zstandard` imports) its default
+    zstd.  `mesh=` rebinds a row-sharded plan; `device` as in
     `plan_from_state`."""
     state, step = CheckpointManager(ckpt_dir).restore_any(step)
     return plan_from_state(state, mesh=mesh, device=device), step

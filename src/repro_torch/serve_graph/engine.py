@@ -24,10 +24,12 @@ versions) replaces the reference's `interpret`, and plans are keyed
 through the drivers' `plan_options`, so with device=None the keys are
 the reference's and the blocking drivers'.  The coalesced batch stays
 on the plan's device: the steppers' frontiers are concatenated there,
-padded with zeros, and each stepper advances on its slice of `y`.  A
-card plan's `execute_many` runs `execute` once per row, so a padded
-lane costs a launch like a real one; `stats()` counts both (`lanes`,
-`padded_lanes`).  Each mutation's host seconds (the adjacency delta,
+padded with zeros, and each stepper advances on its slice of `y`.  On
+an 'ell', 'hyb' or 'csr-seg' card plan `execute_many` is one launch of
+each batched kernel, so a padded lane costs its column of the SpMM (its
+gathers and its row of Y), not a launch; on the other card plans it
+runs `execute` once per row, and a padded lane costs a launch like a
+real one.  `stats()` counts both (`lanes`, `padded_lanes`).  Each mutation's host seconds (the adjacency delta,
 the operands, `csr_diff`, `merge`, overlay installation, re-keying)
 are kept in `mutation_seconds`.
 

@@ -144,9 +144,12 @@ def test_each_wrapper_counts_only_its_launches(cuda):
     p.execute(torch.ones(256, device=cuda))
     assert launch_counts() == {"spmv_dia": 0, "spmv_ell": 1, "spmv_csr": 0,
                                "spmv_csr_seg": 1, "spmv_bell": 0,
+                               "spmm_ell": 0, "spmm_csr_seg": 0,
                                "flash_attention": 0, "paged_attention": 0}
-    p.execute_many(torch.ones(2, 256, device=cuda))     # one per row
-    assert sum(launch_counts().values()) == 6
+    p.execute_many(torch.ones(2, 256, device=cuda))     # one batched SpMM
+    assert launch_counts()["spmm_ell"] == 1 and \
+        launch_counts()["spmm_csr_seg"] == 1
+    assert sum(launch_counts().values()) == 4
     assert set(KERNELS) == set(launch_counts())
 
 
@@ -303,23 +306,103 @@ def test_bell_kernel_non_finite_x_on_transposed_tiles(cuda, where, bad):
 def test_execute_many_replays_on_the_card(cuda):
     """C2: two `execute_many` calls on real-valued X over an R-MAT HYB
     plan and an FD padded-CSR plan are equal, each row equals `execute`
-    of that row, and the kernel plans launch their kernels once per row;
-    the `use_pallas=False` plans (ordered sums) replay bit for bit too."""
+    of that row; the HYB kernel plan launches its batched segmented
+    kernel once for the four rows, the padded-CSR plan its kernel once
+    per row; the `use_pallas=False` plans (ordered sums) replay bit for
+    bit too."""
     from repro_torch.core.generators import fd_matrix, rmat_matrix
 
     X = torch.rand(4, 1 << 14, device=cuda) * 2 - 1
-    for gen, fmt, kern in ((rmat_matrix, "hyb", "spmv_csr_seg"),
-                           (fd_matrix, "csr", "spmv_csr")):
+    for gen, fmt, kern, n in ((rmat_matrix, "hyb", "spmm_csr_seg", 1),
+                              (fd_matrix, "csr", "spmv_csr", 4)):
         m = gen(1 << 14, device=cuda)
         for use_pallas in (True, False):
             p = tcompile(m, format=fmt, use_pallas=use_pallas,
                          reorder="none", predictor="none", device=cuda)
             reset_launch_counts()
             Y = p.execute_many(X)
-            assert launch_counts()[kern] == (4 if use_pallas else 0)
+            assert launch_counts()[kern] == (n if use_pallas else 0)
             assert torch.equal(p.execute_many(X), Y)
             for k in range(4):
                 assert torch.equal(p.execute(X[k]), Y[k])
+
+
+def _card_batch(sr_name, k, n, seed, device):
+    """Real-valued X with ±inf (and, under plus_times, -0.0) mixed in."""
+    gen = torch.Generator().manual_seed(seed)
+    X = torch.rand((k, n), generator=gen) * 2 - 1
+    if sr_name in ("or_and", "max_times"):
+        X = X.abs()
+    pick = torch.rand((k, n), generator=gen)
+    X[pick < 0.03] = float("inf")
+    if sr_name != "max_times":
+        X[(pick >= 0.03) & (pick < 0.05)] = float("-inf")
+    X[(pick >= 0.05) & (pick < 0.07)] = -0.0
+    return X.to(device)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 64, 65])
+@pytest.mark.parametrize("sr_name", SEMIRING_NAMES)
+@pytest.mark.parametrize("family", ["fd", "rmat", "single-dense-row"])
+def test_batched_kernels_equal_per_row_kernels(cuda, family, sr_name, k):
+    """`spmm_ell` and `spmm_csr_seg` (with and without a (k, n) base, in
+    windows small enough that rows split) equal `spmv_ell` /
+    `spmv_csr_seg` of each row bit for bit on real-valued X with ±inf
+    and -0.0, launch once per call whatever k is, and replay bit for
+    bit."""
+    from repro_torch.kernels import (spmm_csr_seg, spmm_ell, spmv_csr_seg,
+                                     spmv_ell)
+
+    csr = port_int_operands(family, 1000, 3, sr_name, device=cuda)[0]
+    sr = SEMIRINGS[sr_name]
+    ell = tkl.prepare_ell(convert(csr, "ell", fill=sr.pad_value), sr)
+    seg = tkl.prepare_csr_seg(csr, seg_len=64)
+    X = _card_batch(sr_name, k, csr.n_cols, k, cuda)
+    base = _card_batch(sr_name, k, csr.n_rows, k + 1, cuda)
+    reset_launch_counts()
+    Y = spmm_ell(ell.data, ell.idx, X, sr)
+    assert launch_counts()["spmm_ell"] == 1
+    assert torch.equal(_bits(Y), _bits(torch.stack(
+        [spmv_ell(ell.data, ell.idx, X[c], sr) for c in range(k)])))
+    assert torch.equal(_bits(spmm_ell(ell.data, ell.idx, X, sr)), _bits(Y))
+    for b in (None, base):
+        reset_launch_counts()
+        Y = spmm_csr_seg(seg, X, sr, base=b)
+        assert launch_counts()["spmm_csr_seg"] == 1
+        want = torch.stack([spmv_csr_seg(seg, X[c], sr, base=None if b is
+                                         None else b[c]) for c in range(k)])
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(Y), _bits(want))
+        assert torch.equal(_bits(spmm_csr_seg(seg, X, sr, base=b)), _bits(Y))
+
+
+@pytest.mark.parametrize("sr_name", SEMIRING_NAMES)
+@pytest.mark.parametrize("fmt", ["ell", "hyb", "csr-seg"])
+def test_batched_plans_match_plain_versions(cuda, fmt, sr_name):
+    """A kernel plan's `execute_many` on integer-valued X equals the
+    batched plain versions on the CPU exactly (one launch of each of its
+    batched kernels), and each row equals `execute` bit for bit."""
+    csr, x = port_int_operands("rmat", 1 << 12, 5, sr_name)
+    X = np.stack([np.roll(x, s) for s in range(7)])
+    kw = dict(format=fmt, semiring=sr_name, reorder="none",
+              predictor="none")
+    want = tcompile(csr, device="cpu", **kw).execute_many(X)
+    p = tcompile(csr.to(cuda), device=cuda, **kw)
+    reset_launch_counts()
+    Y = p.execute_many(torch.from_numpy(X).to(cuda))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if v} == {
+        "ell": {"spmm_ell": 1}, "csr-seg": {"spmm_csr_seg": 1},
+        "hyb": {"spmm_ell": 1, "spmm_csr_seg": 1}}[fmt]
+    assert torch.equal(Y.cpu(), want)
+    Xr = _card_batch(sr_name, 7, csr.n_cols, 9, cuda)
+    Yr = p.execute_many(Xr)
+    assert all(torch.equal(_bits(p.execute(Xr[c])), _bits(Yr[c]))
+               for c in range(7))
 
 
 def test_bell_and_reordered_plans_on_the_card(cuda):
@@ -765,7 +848,7 @@ def test_engine_trace_with_mutations_replays_on_the_card(cuda):
         ("pagerank", "sssp", "bfs", "connected_components"), "overlay")
     assert a[1][101]["sssp"] == "replan" and \
         a[1][101]["pagerank"] == "overlay"
-    assert counts["spmv_csr_seg"] > 0 and counts["spmv_ell"] > 0
+    assert counts["spmm_csr_seg"] > 0 and counts["spmm_ell"] > 0
 
 
 @pytest.mark.parametrize("family", ["fd", "rmat"])

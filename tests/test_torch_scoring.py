@@ -241,6 +241,7 @@ def test_parallel_spec_reaches_the_scores(geo, predictor):
 def test_fallback_without_a_model_matches_reference(predictor):
     """With no model loaded, 'model' falls back to the oracle and records
     `model_fallback`; 'auto' falls back silently."""
+    rcm.default_model(), tcm.default_model()   # loaded before the swap
     prev_r, prev_t = rcm.set_default_model(None), tcm.set_default_model(None)
     try:
         for family in ("rmat", "scrambled"):

@@ -7,14 +7,16 @@ same leaves, byte-equal arrays (dtypes included), and a meta record
 equal to the reference's but for `compile_stats`' timings.  A plan
 saved by either package loads in the other and multiplies as the
 original does; a sharded plan loaded without a mesh refuses with the
-reference's message.  (The port reads zlib checkpoints, the codec of
-the shipped artifacts; the reference writes zstd by default when the
-optional `zstandard` is installed, so its saves here pin zlib.)  The
-seed-0 harvest at log2n 8 equals the shipped corpus rows, and
+reference's message.  (The port writes zlib, the codec of the shipped
+artifacts, and reads zlib and -- where the optional `zstandard` imports
+-- zstd, the reference's default codec there; the cross-loads pin zlib,
+and a reference save under its default codec loads in the port too.)
+The seed-0 harvest at log2n 8 equals the shipped corpus rows, and
 `label_cells` the reference's grid.
 """
 import dataclasses
 import json
+import os
 
 import msgpack
 import numpy as np
@@ -27,6 +29,7 @@ from repro.core.partition import rowblock_equal as r_equal
 from repro.plan import costmodel as rcm
 from repro.telemetry import runner as rrun
 from repro_torch import plan as tplan
+from repro_torch.checkpoint import CheckpointManager, packb
 from repro_torch.distributed import row_mesh
 from repro_torch.plan import costmodel as tcm
 from repro_torch.telemetry import runner as trun
@@ -151,6 +154,50 @@ def test_sharded_plan_without_a_mesh_refuses_like_the_reference(tmp_path):
     again, _ = tplan.load_plan(str(tmp_path / "ck"),
                                mesh=row_mesh(["cpu"] * SHARDS))
     assert torch.equal(again.execute(x), tp.execute(x))
+
+
+@pytest.mark.parametrize("name", ["hyb", "csr", "rcm-csr"])
+def test_reference_default_codec_save_loads_in_the_port(name, tmp_path):
+    """A reference `save_plan` with default settings (zstd where
+    `zstandard` imports) loads with the port's `load_plan`: byte-equal
+    arrays and an equal `execute`."""
+    from repro.checkpoint import manager as rman
+    from repro.plan.serial import plan_state as r_state
+
+    if rman.DEFAULT_CODEC != "zstd":
+        pytest.skip("zstandard is not installed: the reference's default "
+                    "codec is zlib here, which the cross-loads cover")
+    rp, tp, x = _pair(name)
+    rplan.save_plan(rp, str(tmp_path))
+    shards = sorted(os.listdir(tmp_path / "step_000000000"))
+    assert "shard_00000.bin.zst" in shards
+    got, step = tplan.load_plan(str(tmp_path), device="cpu")
+    assert step == 0 and got.format_name == rp.format_name
+    _same_state(r_state(rp), tplan.plan_state(got))
+    assert torch.equal(got.execute(x), tp.execute(x))
+    assert np.array_equal(got.execute(x).numpy(),
+                          np.asarray(rp.execute(x)))
+
+
+def test_zstd_without_zstandard_is_refused_naming_the_codec(tmp_path,
+                                                            monkeypatch):
+    """Where `zstandard` does not import, a zstd checkpoint is refused
+    with the reference's error, which names the codec."""
+    from repro_torch.checkpoint import manager as tman
+
+    tp = _pair("csr")[1]
+    tplan.save_plan(tp, str(tmp_path))
+    step_dir = tmp_path / "step_000000000"
+    mgr = CheckpointManager(str(tmp_path))
+    man = mgr.load_manifest(0)
+    man["codec"] = "zstd"
+    (step_dir / "manifest.msgpack").write_bytes(packb(man))
+    os.replace(step_dir / "shard_00000.bin.zlib",
+               step_dir / "shard_00000.bin.zst")
+    monkeypatch.setattr(tman, "_DECOMPRESS", {"zlib": tman.zlib.decompress})
+    with pytest.raises(ModuleNotFoundError, match="codec 'zstd'.*have: "
+                       r"\['zlib'\]"):
+        tplan.load_plan(str(tmp_path), device="cpu")
 
 
 def test_a_non_default_window_is_recorded_and_rebuilt(tmp_path):

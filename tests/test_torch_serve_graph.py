@@ -143,7 +143,8 @@ def _driver_scenario(side, n):
 @pytest.mark.parametrize("n", [N, 1 << 10])
 def test_engine_matches_blocking_drivers(n):
     """On the port the engine's PageRank equals the blocking driver's bit
-    for bit: a CPU plan's `execute_many` runs `execute` per row."""
+    for bit: each row of a CPU plan's `execute_many` is what `execute`
+    gives that row."""
     _both(_driver_scenario, n)
 
 
