@@ -54,10 +54,13 @@ kernels/csrc/` and then runs these phases, one output line per step:
            the card: same iteration counts, BFS/SSSP/CC values equal,
            PageRank within rtol 1e-3 (values near 2^-22); then
            `execute_many` on real-valued X (±inf in the ⊕-only
-           semirings) at k = 4 and k = 64 over the FD ELL plans
+           semirings) at k = 4, 16 and 64 over the FD ELL plans
            (min_plus, or_and) and the R-MAT HYB PageRank plan: two calls
            bit-identical, each row bit-equal to `execute`, one launch of
-           each batched kernel a call; `execute_many_ms` beside the time
+           each batched kernel a call; each plan's `spmm_ell` gather
+           layout (FD: X read as it lies, whose call's trace must hold
+           no kernel but `spmm_ell`; HYB: the interleaved copy, timed
+           alone as `interleave_ms`); `execute_many_ms` beside the time
            of k `execute` calls, the bound (the layout once, X and Y
            once) and, under plus-times, `torch.sparse.mm` of the CSR
            against the (n, k) block; and the R-MAT plain plan's replay;
@@ -107,7 +110,8 @@ kernels/csrc/` and then runs these phases, one output line per step:
            the first x tile, or a column its blocks drop, holds a
            non-finite value; the batched kernels (`spmm_ell`,
            `spmm_csr_seg` with a (k, n) base) the same way at k = 4, and
-           at k = 64 bit for bit against the single-vector kernels' rows;
+           at k = 64 bit for bit against the single-vector kernels' rows
+           (FD's `spmm_ell` through both gather layouts);
   time     per kernel at the main path's shapes: CUDA-event time of many
            launches, its plain version's time, a torch.sparse CSR
            product's time where one computes the same function, and the
@@ -127,10 +131,12 @@ kernels/csrc/` and then runs these phases, one output line per step:
            BELL on the blocked PageRank layout (and on the
            per-call layout of the dense tiles), with the padded
            container's bytes beside it as `padded_bound_ms`; `spmm_ell`
-           on the FD ELL layout at k = 64 and `spmm_csr_seg` on the
-           R-MAT heavy stream at k = 4 (X and Y, and the base, k times
-           the vectors' bytes; `torch.sparse.mm` against the (n, k)
-           block as the library call);
+           on the FD ELL layout and `spmm_csr_seg` on the R-MAT heavy
+           stream at k = 4, 16 and 64 (the JSON entries: 64 and 4; X and
+           Y, and the base, k times the vectors' bytes; `torch.sparse.mm`
+           against the (n, k) block as the library call, from k = 16
+           `torch.addmm` with the base for `spmm_csr_seg`, whose
+           `gather_bound_ms` reads each gathered Xt row once);
   serve    `serve_graph.GraphEngine` (64 lanes, compile queue 8, one
            compile a step) over the main path's FD and R-MAT graphs and
            its plan cache, launch counts set to 0 just before and read
@@ -483,7 +489,59 @@ def plan_layout_bytes(plan) -> int:
                         p.heavy.cols)
 
 
-def execute_many_replays(cases, plain_plan, dev, reps, ks=(4, 64)):
+def slab_gather(lp, sr) -> str:
+    """How the batched ELL kernel reads X for the slab `lp` under the
+    semiring `sr` (`spmv_ell.gather_layout`, derived from the slab):
+    "direct" reads X as it lies, "xt" gathers rows of its interleaved
+    copy."""
+    from repro_torch.kernels.spmv_ell import gather_layout
+
+    return gather_layout(lp.data, lp.idx, sr.pad_value)
+
+
+def gather_of(plan) -> str:
+    """`slab_gather` of an ell plan's slab or a hyb plan's light slab (a
+    HYB heavy stream always gathers from the interleaved copy)."""
+    from repro_torch.graph.semiring import resolve
+
+    p = plan.prep
+    return slab_gather(p if plan.format_name == "ell" else p.light,
+                       resolve(plan.semiring))
+
+
+def call_kernels(fn, dev, reps: int) -> list:
+    """The names of the device kernels and copies of `fn()`, from a
+    torch.profiler trace of `reps` calls (the profiler drops records of
+    a short trace: ten calls of a 2 ms kernel left none, fifty kept
+    them); [] on the CPU."""
+    if dev.type != "cuda":
+        return []
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(device_records(prof))
+
+
+def allocated_bytes(fn, dev):
+    """Bytes the caching allocator handed out during one `fn()` call
+    (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    key = "allocated_bytes.all.allocated"
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(dev)[key]
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.memory_stats(dev)[key] - before
+
+
+def execute_many_replays(cases, plain_plan, dev, reps, ks=(4, 16, 64)):
     """`execute_many` on real-valued X over the main path's plans
     (`cases`: (tag, plan) -- the FD ELL plans under min_plus and or_and
     and the R-MAT HYB PageRank plan), at each k of `ks`: a second call
@@ -491,7 +549,11 @@ def execute_many_replays(cases, plain_plan, dev, reps, ks=(4, 64)):
     (one launch of each batched kernel a call), its time beside that of
     k calls of `execute` and the bound (the layout once, X and Y once,
     at 3.35 TB/s), and under plus-times `torch.sparse.mm` of the CSR
-    against the (n, k) block; the plain oracle replays at k = 4.
+    against the (n, k) block; the plain oracle replays at k = 4.  Each
+    plan's ELL gather layout is logged; the interleaved copy of X is
+    timed alone where the call makes one, and a call that reads X as it
+    lies must allocate Y alone and show no kernel but `spmm_ell`'s in a
+    trace of its calls.
     Returns {(tag, k): line's numbers}."""
     from repro_torch import kernels as K
 
@@ -499,6 +561,12 @@ def execute_many_replays(cases, plain_plan, dev, reps, ks=(4, 64)):
     for tag, plan in cases:
         sr = plan.semiring
         lib = None
+        gather = gather_of(plan)
+        copies = gather == "xt" or plan.format_name == "hyb"
+        log(f"execute_many {tag} {plan.format_name}: spmm_ell gather "
+            f"layout {gather}" + (" (X as it lies, no interleaved copy)"
+                                  if not copies else
+                                  " (rows of the interleaved copy of X)"))
         if sr == "plus_times":
             c = plan.csr
             A = sparse_csr(*_coo(c), c.n_rows, c.n_cols)
@@ -519,8 +587,32 @@ def execute_many_replays(cases, plain_plan, dev, reps, ks=(4, 64)):
             many_ms = time_ms(lambda: plan.execute_many(X), n_rep, dev)
             loop_ms = time_ms(lambda: [plan.execute(X[c]) for c in range(k)],
                               n_rep, dev)
-            # the wrappers' interleaved copy of X, alone
-            copy_ms = time_ms(lambda: K.interleave_columns(X), n_rep, dev)
+            copy_ms = None
+            if copies:      # the wrappers' interleaved copy of X, alone
+                copy_ms = time_ms(lambda: K.interleave_columns(X), n_rep,
+                                  dev)
+            else:
+                # no copy: the call allocates Y alone (the caching
+                # allocator's cumulative bytes), and its trace holds no
+                # kernel but spmm_ell's
+                got = allocated_bytes(lambda: plan.execute_many(X), dev)
+                y_bytes = 4 * k * plan.n_rows
+                check(got is None or got < y_bytes + 2 * k * plan.n_cols,
+                      f"execute_many {tag} k={k}: the call allocated {got} "
+                      f"bytes, more than Y's {y_bytes}")
+                names = call_kernels(lambda: plan.execute_many(X), dev,
+                                     max(reps, 50))
+                # an empty trace on the card proves nothing: it fails
+                only = (dev.type != "cuda" or bool(names)) and \
+                    all("spmm_ell" in name for name in names)
+                check(only, f"execute_many {tag} k={k}: the call's trace "
+                            f"holds {names}, not spmm_ell alone")
+                copied = not only or (got is not None and got >= y_bytes
+                                      + 2 * k * plan.n_cols)
+                log(f"execute_many {tag} k={k}: allocated_bytes={got} (Y: "
+                    f"{y_bytes}); trace: device kernels "
+                    f"{names or 'none recorded'}; interleaved copy in the "
+                    f"call: {copied}")
             need = plan_layout_bytes(plan) + 4 * k * (plan.n_cols
                                                       + plan.n_rows)
             bound = 1e3 * need / HBM_BYTES_PER_S
@@ -528,13 +620,16 @@ def execute_many_replays(cases, plain_plan, dev, reps, ks=(4, 64)):
                 Xn = X.t().contiguous()
                 lib = time_ms(lambda: torch.sparse.mm(A, Xn), n_rep, dev)
             out[(tag, k)] = dict(ms=many_ms, loop_ms=loop_ms, bound_ms=bound,
-                                 library_ms=lib, interleave_ms=copy_ms)
+                                 library_ms=lib, interleave_ms=copy_ms,
+                                 gather=gather)
             log(f"execute_many {tag} {plan.format_name} {sr}, k={k} real X: "
                 f"replay bit-identical {same}, rows == execute {rows}, "
                 f"launches {json.dumps(launches)}; execute_many_ms="
                 f"{many_ms:.4f} k_execute_ms={loop_ms:.4f} "
-                f"({loop_ms / many_ms:.2f}x) interleave_ms={copy_ms:.4f} "
-                f"bound_bytes={need} bound_ms="
+                f"({loop_ms / many_ms:.2f}x) interleave_ms="
+                + ("none (no copy made)" if copy_ms is None
+                   else f"{copy_ms:.4f}")
+                + f" bound_bytes={need} bound_ms="
                 f"{bound:.4f} ({many_ms / bound:.2f}x bound) library_ms="
                 + ("null" if lib is None else
                    f"{lib:.4f} (torch.sparse.mm of the CSR, (n, k) block)"))
@@ -1610,11 +1705,17 @@ def kernel_vs_plain(K, SR, plans, dev):
                     K.spmm_ell(*args), K.spmv_ell_plain(*args),
                     exact=kind == "int" or sr_name != "plus_times")
         X = batch_x(sr_name, 64, lp.n_cols, 3, dev)
+        rows = [K.spmv_ell(lp.data, lp.idx, X[c], SR[sr_name])
+                for c in range(64)]
         batch_vs_rows(
-            "spmm_ell", f"{fam} {a} {sr_name} k=64",
-            K.spmm_ell(lp.data, lp.idx, X, SR[sr_name]),
-            [K.spmv_ell(lp.data, lp.idx, X[c], SR[sr_name])
-             for c in range(64)])
+            "spmm_ell", f"{fam} {a} {sr_name} k=64 (gather "
+            f"{slab_gather(lp, SR[sr_name])})",
+            K.spmm_ell(lp.data, lp.idx, X, SR[sr_name]), rows)
+        if fam == "fd":             # the other layout on the same slab
+            batch_vs_rows(
+                "spmm_ell", f"{fam} {a} {sr_name} k=64 (gather xt, forced)",
+                K.spmm_ell(lp.data, lp.idx, X, SR[sr_name], _gather="xt"),
+                rows)
 
     # batched segmented CSR: the R-MAT PageRank (plus_times, max_times)
     # and SSSP (min_plus) heavy streams with a (k, n) base at k = 4
@@ -1644,7 +1745,66 @@ def kernel_vs_plain(K, SR, plans, dev):
             K.spmm_csr_seg(hp, X, SR[sr_name], base=base),
             [K.spmv_csr_seg(hp, X[c], SR[sr_name], base=base[c])
              for c in range(64)])
+
+    # both batched kernels at the widths the serving engine pads its lanes
+    # to, against the plain versions (computed 16 columns at a time: at
+    # k = 64 their temporaries do not fit beside the main path's plans):
+    # R-MAT's light slab (the Xt kernel) and heavy stream with a (k, n)
+    # base (the lanes kernel, G = 4 and 16 lanes a virtual thread)
+    for k in (16, 64):
+        for a, name, kind in (("pagerank", "plus_times", "int"),
+                              ("pagerank", "plus_times", "real"),
+                              ("pagerank", "max_times", "int"),
+                              ("sssp", "min_plus", "real")):
+            prep, sr = plans[("rmat", a)].prep, SR[name]
+            exact = kind == "int" or name != "plus_times"
+            seed = 1000 * k + len(errs)
+            lp, hp = prep.light, prep.heavy
+            data = int_values(lp.data, name, gen) if kind == "int" \
+                else lp.data
+            X = batch_for(name, k, lp.n_cols, seed, dev, kind)
+            compare(errs, "spmm_ell", f"rmat {a} light {name} {kind} k={k} "
+                    f"(gather {slab_gather(lp, sr)})",
+                    K.spmm_ell(data, lp.idx, X, sr),
+                    plain_in_chunks(lambda Xc, _: K.spmv_ell_plain(
+                        data, lp.idx, Xc, sr), X), exact)
+            vals = int_values(hp.vals, name, gen) if kind == "int" \
+                else hp.vals
+            q = dataclasses.replace(hp, vals=vals)
+            base = batch_for(name, k, hp.n_rows, seed + 1, dev, kind)
+            compare(errs, "spmm_csr_seg", f"rmat {a} {name} {kind} k={k}",
+                    K.spmm_csr_seg(q, X, sr, base=base),
+                    plain_in_chunks(lambda Xc, bc: K.spmv_csr_seg_plain(
+                        q, Xc, sr, base=bc), X, base), exact)
+            del X, base, data, vals, q
     return errs
+
+
+def batch_for(sr_name, k, n, seed, dev, kind="int"):
+    """`x_for`'s values for a (k, n) batch, drawn on the device."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (k, n), generator=g, device=dev).float()
+    if sr_name == "plus_times":
+        return ints(-8, 9) if kind == "int" else \
+            torch.rand((k, n), generator=g, device=dev)
+    if sr_name == "or_and":
+        return ints(0, 2)
+    if sr_name == "max_times":
+        return ints(0, 9)
+    X = torch.rand((k, n), generator=g, device=dev) * 100
+    X[torch.rand((k, n), generator=g, device=dev) < 0.1] = float("inf")
+    return X
+
+
+def plain_in_chunks(fn, X, base=None, chunk=16):
+    """A batched plain version `fn(X_chunk, base_chunk)` over a (k, n)
+    batch, `chunk` columns at a time; each column is computed alone, so
+    the chunks make the whole."""
+    return torch.cat([fn(X[c:c + chunk],
+                         None if base is None else base[c:c + chunk])
+                      for c in range(0, X.shape[0], chunk)])
 
 
 def batch_vs_rows(kname, label, got, rows) -> None:
@@ -1748,13 +1908,15 @@ def timings(K, SR, plans, dev, reps, adjacency=None):
         # the uniform yardstick: 8 nnz + 12 n bytes of the unpadded CSR
         csr_bound = 1e3 * (8 * nnz + 12 * n) / HBM_BYTES_PER_S
         ms = time_ms(kern, reps, dev)
-        plain_ms = time_ms(plain, max(reps // 10, 2), dev)
+        plain_ms = time_ms(plain, max(reps // 10, 2), dev) \
+            if plain is not None else None
         lib_ms = time_ms(lib, reps, dev) if lib is not None else None
         out[key or name] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        plain_txt = "not measured" if plain_ms is None else f"{plain_ms:.4f}"
         log(f"time {name} [{label}]: n={n} nnz={nnz} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms="
+            f"plain_ms={plain_txt} library_ms="
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
             f"bound_bytes={need_bytes} bound_ms={bound:.4f} "
             f"({ms / bound:.2f}x bound) csr_bound_ms={csr_bound:.4f} "
@@ -1849,19 +2011,22 @@ def timings(K, SR, plans, dev, reps, adjacency=None):
               ell_bytes, 2 * W * lp.n_rows, c.nnz, c.n_rows,
               (lp.data, lp.idx), f"fd bfs layout, {sr_name}, W={W}", key)
 
-    # batched ELL at k = 64 on the same layout under plus-times: the slab
-    # once, X and Y once; torch.sparse.mm of the CSR against the (n, k)
-    # block as the library call
-    k = 64
-    X = torch.rand((k, lp.n_cols), generator=gen).to(dev)
-    Xn = X.t().contiguous()
-    entry("spmm_ell", lambda: K.spmm_ell(lp.data, lp.idx, X, pt),
-          lambda: K.spmv_ell_plain(lp.data, lp.idx, X, pt),
-          lambda: torch.sparse.mm(A, Xn),
-          layout_bytes(lp.data, lp.idx) + 4 * k * (lp.n_cols + lp.n_rows),
-          2 * k * W * lp.n_rows, c.nnz, c.n_rows, (lp.data, lp.idx),
-          f"fd bfs layout, plus_times, W={W}, k={k}")
-    del X, Xn
+    # batched ELL at k = 4, 16 and 64 (the JSON entry) on the same layout
+    # under plus-times: the slab once, X and Y once; torch.sparse.mm of
+    # the CSR against the (n, k) block as the library call
+    for k in (4, 16, 64):
+        X = torch.rand((k, lp.n_cols), generator=gen).to(dev)
+        Xn = X.t().contiguous()
+        entry("spmm_ell", lambda: K.spmm_ell(lp.data, lp.idx, X, pt),
+              lambda: K.spmv_ell_plain(lp.data, lp.idx, X, pt),
+              lambda: torch.sparse.mm(A, Xn),
+              layout_bytes(lp.data, lp.idx) + 4 * k * (lp.n_cols
+                                                       + lp.n_rows),
+              2 * k * W * lp.n_rows, c.nnz, c.n_rows, (lp.data, lp.idx),
+              f"fd bfs layout, plus_times, W={W}, k={k}, gather "
+              f"{slab_gather(lp, pt)}", None if k == 64 else
+              f"spmm_ell k={k}")
+        del X, Xn
 
     # padded CSR: each row walks its own slots, so no padding slot is read
     plan = plans[("fd", "pagerank")]
@@ -1918,31 +2083,62 @@ def timings(K, SR, plans, dev, reps, adjacency=None):
         f"real stream's")
     del probe
 
-    # batched segmented CSR at k = 4 on the same stream: the stream once,
-    # X, the (k, n) base and Y once; each pass's device time traced
-    k = 4
-    X = torch.rand((k, hp.n_cols), generator=gen).to(dev)
-    B = torch.rand((k, hp.n_rows), generator=gen).to(dev)
-    Xn = X.t().contiguous()
-    entry("spmm_csr_seg", lambda: K.spmm_csr_seg(hp, X, pt, base=B),
-          lambda: K.spmv_csr_seg_plain(hp, X, pt, base=B),
-          lambda: torch.sparse.mm(A, Xn),
-          8 * hyb.heavy_nnz + 4 * k * hp.n_cols + 8 * k * hp.n_rows,
-          k * (2 * hyb.heavy_nnz + hp.n_rows), hyb.heavy_nnz, hp.n_rows,
-          (hp.vals, hp.cols, hp.row_ptr, hp.win_row, hp.split_rows),
-          f"rmat pagerank heavy stream, plus_times, k={k}")
-    passes = {"spmm_seg_window_kernel": "pass 1 (windows)",
+    # batched segmented CSR at k = 4 (the JSON entry), 16 and 64 on the
+    # same stream: the stream once, X, the (k, n) base and Y once; the
+    # gather bound reads each gathered Xt row once instead of X once; the
+    # library call is torch.sparse.mm against the (n, k) block at k = 4
+    # and, from k = 16, torch.addmm of the (n, k) base and that product;
+    # each pass's device time traced
+    passes = {"spmm_seg_window_kernel": "pass 1 (windows, k <= 4)",
+              "spmm_seg_lanes_kernel": "pass 1 (windows, lanes)",
               "spmm_seg_split_kernel": "pass 2 (split rows)"}
-    traced = trace_ms(lambda: K.spmm_csr_seg(hp, X, pt, base=B), reps, dev,
-                      passes)
-    for kname, what in passes.items():
-        t = traced[kname]
-        log(f"time spmm_csr_seg k={k} {what}, traced: kernel_ms="
-            + ("not measured" if t is None else f"{t:.4f}"))
-    out["spmm_csr_seg"].update(
-        pass1_ms=traced["spmm_seg_window_kernel"],
-        pass2_ms=traced["spmm_seg_split_kernel"])
-    del X, B, Xn
+    for k in (4, 16, 64):
+        X = torch.rand((k, hp.n_cols), generator=gen).to(dev)
+        B = torch.rand((k, hp.n_rows), generator=gen).to(dev)
+        Xn, Bn = X.t().contiguous(), B.t().contiguous()
+        key = "spmm_csr_seg" if k == 4 else f"spmm_csr_seg k={k}"
+        nnz = hyb.heavy_nnz
+        # the plain version holds about four (k, nnz) float32 temporaries
+        plain = lambda: K.spmv_csr_seg_plain(hp, X, pt, base=B)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if dev.type == "cuda" and torch.cuda.mem_get_info(dev)[0] \
+                < 5 * 4 * k * nnz:
+            plain = None
+            log(f"time spmm_csr_seg k={k}: plain version not measured "
+                f"(less free device memory than its temporaries need)")
+        entry("spmm_csr_seg", lambda: K.spmm_csr_seg(hp, X, pt, base=B),
+              plain,
+              (lambda: torch.sparse.mm(A, Xn)) if k == 4
+              else (lambda: torch.addmm(Bn, A, Xn)),
+              8 * nnz + 4 * k * hp.n_cols + 8 * k * hp.n_rows,
+              k * (2 * nnz + hp.n_rows), nnz, hp.n_rows,
+              (hp.vals, hp.cols, hp.row_ptr, hp.win_row, hp.split_rows),
+              f"rmat pagerank heavy stream, plus_times, k={k}", key)
+        gather_bound = 1e3 * (8 * nnz + 4 * k * nnz + 8 * k * hp.n_rows) \
+            / HBM_BYTES_PER_S
+        Xt = K.interleave_columns(X)         # the kernel alone, xt given
+        alone = time_ms(lambda: K.spmm_csr_seg(hp, X, pt, base=B, xt=Xt),
+                        reps, dev)
+        traced = trace_ms(lambda: K.spmm_csr_seg(hp, X, pt, base=B), reps,
+                          dev, passes)
+        out[key].update(gather_bound_ms=gather_bound, alone_ms=alone,
+                        pass1_ms=traced["spmm_seg_window_kernel"]
+                        or traced["spmm_seg_lanes_kernel"],
+                        pass2_ms=traced["spmm_seg_split_kernel"])
+        log(f"time spmm_csr_seg k={k}: kernel_ms={out[key]['ms']:.4f} with "
+            f"the wrapper's interleaved copy, {alone:.4f} given the copy; "
+            f"gather_bound_ms={gather_bound:.4f} (8 nnz + 4 k nnz + 8 k "
+            f"n_rows bytes: each gathered Xt row read once; "
+            f"{alone / gather_bound:.2f}x given the copy) library: "
+            + ("torch.sparse.mm of the CSR, (n, k) block" if k == 4 else
+               "torch.addmm of the (n, k) base and the CSR @ (n, k) block"))
+        for kname, what in passes.items():
+            t = traced[kname]
+            if t is not None or dev.type != "cuda":
+                log(f"time spmm_csr_seg k={k} {what}, traced: kernel_ms="
+                    + ("not measured" if t is None else f"{t:.4f}"))
+        del X, B, Xn, Bn, Xt
     return out
 
 
@@ -2094,8 +2290,8 @@ class StepTrace:
             device_ms=device_ms, idle=1 - device_ms / wall_ms, split=split,
             launches={k: now[k] - self.launches[k] for k in now
                       if now[k] > self.launches[k]},
-            spmv_records={short_kernel(k): c for k, (c, _) in recs.items()
-                          if is_spmv(k)},
+            spmv_records={short_kernel(k): [c, round(t / 1e3, 2)]
+                          for k, (c, t) in recs.items() if is_spmv(k)},
             top_other=[(short_kernel(k), c, round(t / 1e3, 1))
                        for k, (c, t) in sorted(
                            recs.items(), key=lambda kv: -kv[1][1])
@@ -2425,7 +2621,8 @@ def run_serve(args, dev, K, P, SG, D, drivers, fd_matrix, rmat_matrix,
             f"busy_share={1 - w['idle']:.4f} idle_share={w['idle']:.4f} "
             f"(kernels alone {kernels_ms / w['wall_ms']:.4f}) "
             f"launches {json.dumps(w['launches'])} spmv kernel records "
-            f"{json.dumps(w['spmv_records'])} compiles={w['compiles']}; "
+            f"[records, ms] {json.dumps(w['spmv_records'])} "
+            f"compiles={w['compiles']}; "
             f"most device time outside them (name, records, ms): "
             f"{w['top_other']}")
         check(w["split"]["spmv"] > 0, "serve engine trace holds no SpMV "

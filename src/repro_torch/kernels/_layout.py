@@ -462,8 +462,9 @@ def spmm_hyb_prepared(prep: PreparedHYB, X: torch.Tensor,
                       semiring=None) -> torch.Tensor:
     """Y[c] = `spmv_hyb_prepared(prep, X[c])` for a (k, n_cols) batch: the
     batched ELL kernel over the light rows, then the batched segmented
-    kernel with that (k, n_rows) result as its base; both gather from
-    one interleaved copy of X."""
+    kernel with that (k, n_rows) result as its base.  The heavy stream
+    gathers from one interleaved copy of X, which a random light slab
+    shares."""
     _check_X(X, prep.n_cols)
     xt = interleave_columns(X)
     Y_light = spmm_ell_prepared(prep.light, X, semiring, xt=xt)

@@ -135,7 +135,7 @@ def spmm_csr_seg(seg, X: torch.Tensor, sr: Semiring, base=None,
     _build.require(xt, torch.float32, "xt", 2)
     if xt.shape != (seg.n_cols, k):
         raise ValueError("spmm_csr_seg: xt is not X's interleaved copy")
-    carries = torch.empty((2, k, n_win), dtype=torch.float32,
+    carries = torch.empty((2, n_win, k), dtype=torch.float32,
                           device=X.device)
     fn = _build.function(
         "spmm_csr_seg", "spmm_csr_seg_f32",

@@ -17,6 +17,7 @@ from repro_torch.graph import drivers as tdrv
 from repro_torch.graph.semiring import SEMIRINGS
 from repro_torch.kernels import (KERNELS, _layout as tkl, launch_counts,
                                  reset_launch_counts)
+from repro_torch.kernels.spmv_ell import gather_layout
 from repro_torch.core.formats import BELL, CSR
 from repro_torch.plan import compile as tcompile, convert
 
@@ -378,6 +379,99 @@ def test_batched_kernels_equal_per_row_kernels(cuda, family, sr_name, k):
         torch.cuda.synchronize()
         assert torch.equal(_bits(Y), _bits(want))
         assert torch.equal(_bits(spmm_csr_seg(seg, X, sr, base=b)), _bits(Y))
+
+
+def _nan_batch(sr_name, k, n, seed, device):
+    """`_card_batch` with NaN in about 2 % of the entries too."""
+    X = _card_batch(sr_name, k, n, seed, device).cpu()
+    pick = torch.rand((k, n), generator=torch.Generator().manual_seed(-seed))
+    X[pick < 0.02] = float("nan")
+    return X.to(device)
+
+
+def _int_batch(sr_name, k, n, seed, device):
+    """Integer values in the semiring's domain (min_plus: some +inf), on
+    which the kernels and the plain versions agree exactly."""
+    rng = np.random.default_rng(seed)
+    lo = 0 if sr_name in ("or_and", "max_times") else -8
+    hi = 2 if sr_name == "or_and" else 9
+    X = rng.integers(lo, hi, (k, n)).astype(np.float32)
+    if sr_name == "min_plus":
+        X[rng.random((k, n)) < 0.05] = np.inf
+    return torch.from_numpy(X).to(device)
+
+
+REDESIGN_KS = [1, 3, 4, 5, 12, 16, 17, 33, 64, 65, 128]
+
+
+@pytest.mark.parametrize("k", REDESIGN_KS)
+@pytest.mark.parametrize("sr_name", SEMIRING_NAMES)
+@pytest.mark.parametrize("family", ["rmat", "single-dense-row"])
+def test_redesigned_segmented_kernel_bit_for_bit(cuda, family, sr_name, k):
+    """`spmm_csr_seg` at every group width (k <= 4 the columns kernel,
+    then G = 2, 4, 8, 16 lanes a virtual thread, k > 64 in tiles of 64)
+    over windows of 64 items, where the dense row is a hub spanning many
+    windows: with ±inf, -0.0 and NaN in X and in the base, every row
+    equals `spmv_csr_seg` of that row bit for bit, and a replay too; on
+    integer values it equals the plain version exactly."""
+    from repro_torch.kernels import (spmm_csr_seg, spmv_csr_seg,
+                                     spmv_csr_seg_plain)
+
+    csr = port_int_operands(family, 1000, 3, sr_name, device=cuda)[0]
+    sr = SEMIRINGS[sr_name]
+    seg = tkl.prepare_csr_seg(csr, seg_len=64)
+    assert seg.split_rows.numel() > 0
+    X = _nan_batch(sr_name, k, csr.n_cols, k, cuda)
+    base = _nan_batch(sr_name, k, csr.n_rows, k + 1, cuda)
+    for b in (None, base):
+        reset_launch_counts()
+        Y = spmm_csr_seg(seg, X, sr, base=b)
+        assert launch_counts()["spmm_csr_seg"] == 1
+        want = torch.stack([spmv_csr_seg(seg, X[c], sr, base=None if b is
+                                         None else b[c]) for c in range(k)])
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(Y), _bits(want))
+        assert torch.equal(_bits(spmm_csr_seg(seg, X, sr, base=b)), _bits(Y))
+    Xi = _int_batch(sr_name, k, csr.n_cols, k, cuda)
+    Bi = _int_batch(sr_name, k, csr.n_rows, k + 1, cuda)
+    assert torch.equal(spmm_csr_seg(seg, Xi, sr, base=Bi),
+                       spmv_csr_seg_plain(seg, Xi, sr, base=Bi))
+
+
+@pytest.mark.parametrize("k", REDESIGN_KS)
+@pytest.mark.parametrize("sr_name", SEMIRING_NAMES)
+@pytest.mark.parametrize("family", ["fd", "rmat"])
+def test_redesigned_ell_kernel_both_layouts_bit_for_bit(cuda, family,
+                                                        sr_name, k):
+    """`spmm_ell` on one slab forced through both gather layouts (X as it
+    lies, and tiles of the interleaved copy's rows):
+    equal bits, each row `spmv_ell` of that row with ±inf, -0.0 and NaN,
+    the plain version exactly on integer values; the slab's own choice
+    (`gather_layout`) is FD: direct, R-MAT: xt."""
+    from repro_torch.kernels import spmm_ell, spmv_ell, spmv_ell_plain
+
+    csr = port_int_operands(family, 1 << 12, 3, sr_name, device=cuda)[0]
+    sr = SEMIRINGS[sr_name]
+    ell = tkl.prepare_ell(convert(csr, "ell", fill=sr.pad_value), sr)
+    assert gather_layout(ell.data, ell.idx, sr.pad_value) == \
+        {"fd": "direct", "rmat": "xt"}[family]
+    X = _nan_batch(sr_name, k, csr.n_cols, k, cuda)
+    rows = torch.stack([spmv_ell(ell.data, ell.idx, X[c], sr)
+                        for c in range(k)])
+    got = {}
+    for gather in ("direct", "xt"):
+        reset_launch_counts()
+        got[gather] = spmm_ell(ell.data, ell.idx, X, sr, _gather=gather)
+        assert launch_counts()["spmm_ell"] == 1
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got[gather]), _bits(rows))
+    assert torch.equal(_bits(tkl.spmm_ell_prepared(ell, X, sr)),
+                       _bits(got["direct"]))
+    Xi = _int_batch(sr_name, k, csr.n_cols, k, cuda)
+    want = spmv_ell_plain(ell.data, ell.idx, Xi, sr)
+    for gather in ("direct", "xt"):
+        assert torch.equal(spmm_ell(ell.data, ell.idx, Xi, sr,
+                                    _gather=gather), want)
 
 
 @pytest.mark.parametrize("sr_name", SEMIRING_NAMES)

@@ -32,9 +32,11 @@ from repro.core import delta as rdelta
 from repro_torch import plan as tplan
 from repro_torch.core import delta as tdelta
 from repro_torch.core import generators as tg
+from repro_torch import reorder as treorder
 from repro_torch.graph.semiring import SEMIRINGS
 from repro_torch.kernels import (KERNELS, _layout as tkl, spmv_csr_seg_plain,
                                  spmv_ell_plain)
+from repro_torch.kernels.spmv_ell import gather_layout
 from repro_torch.plan import convert as t_convert
 
 roverlay = importlib.import_module("repro.plan.overlay")
@@ -239,3 +241,277 @@ def test_execute_many_on_the_generators_rows_equal_execute(fmt):
     Y = p.execute_many(X)
     assert all(_same_bits(p.execute(X[c]), Y[c]) for c in range(64))
     assert p.execute_many(X[:0]).shape == (0, p.n_rows)
+
+
+# ---------------------------------------------------------------------------
+# the batched segmented kernel's lanes schedule, replayed on the CPU
+# ---------------------------------------------------------------------------
+
+def _lanes_model(seg, x, sr, base, threads=16, warp=4, chunk=8, depth=3):
+    """`csrc/spmm_csr_seg.cu`'s lanes kernel for one column, item by item,
+    with `threads` virtual threads a window in scan groups of `warp`
+    (256 and 32 on the card) held `chunk` at a time (512 / G): each
+    virtual thread's nonzeros gathered `depth` at a time and folded, the
+    rows that end before a nonzero closed first; the chunk's carry-outs
+    scanned group by group, the group totals folded in order across
+    chunks, each head row joined with the previous virtual thread's scan
+    (the previous chunk's last one kept), the chunk's rows stored after
+    it; then pass 2's butterfly over split rows.  Its values are what the
+    kernel computes, order included."""
+    def add(a, b):
+        return sr.add(torch.tensor(a), torch.tensor(b)).item()
+
+    def mul(a, b):
+        return sr.mul(torch.tensor(a), torch.tensor(b)).item()
+
+    ident, L = sr.identity, seg.window
+    ptr, wr = seg.row_ptr.tolist(), seg.win_row.tolist()
+    vals, cols, xs = seg.vals.tolist(), seg.cols.tolist(), x.tolist()
+    n_rows, nnz = seg.n_rows, len(vals)
+    n_items, n_win = n_rows + nnz, len(wr) - 1
+    y = [None] * n_rows
+    head, tail = [None] * n_win, [None] * n_win
+
+    def out(row, v):
+        assert y[row] is None, "a row is written twice"
+        y[row] = v if base is None else add(base[row].item(), v)
+
+    for w in range(n_win):
+        d0, d1 = w * L, min(w * L + L, n_items)
+        i0, i1 = wr[w], wr[w + 1]
+        k0, n_i = d0 - i0, i1 - i0
+        n = n_i + d1 - i1 - k0
+        rend = [ptr[i0 + 1 + r] - k0 for r in range(n_i)]
+        began_before = ptr[i0] < k0
+        ipt = -(-L // threads)
+        vfirst = []
+        for v in range(threads + 1):
+            lo = min(v * ipt, n)
+            a, b = max(lo - (n - n_i), 0), min(lo, n_i)
+            while a < b:
+                p = (a + b) // 2
+                if rend[p] <= lo - p - 1:
+                    a = p + 1
+                else:
+                    b = p
+            vfirst.append(a)
+        acc, last = ident, None
+        for v0 in range(0, threads, chunk):
+            rb, ybuf = vfirst[v0], {}
+            carry, heads, ends = [], [], []
+            for v in range(v0, v0 + chunk):
+                fnext = vfirst[v + 1]
+                lo = min(v * ipt, n)
+                hi = min(lo + ipt, n)
+                i = vfirst[v]
+                kk, kend = lo - i, hi - fnext
+                st = dict(s=ident, hd=ident, has_end=False)
+
+                def close_rows(i, kk, st=st, fnext=fnext, rb=rb, ybuf=ybuf):
+                    while i < fnext and rend[i] <= kk:
+                        if st["has_end"]:
+                            assert i - rb not in ybuf
+                            ybuf[i - rb] = st["s"]
+                        else:
+                            st["hd"], st["has_end"] = st["s"], True
+                        st["s"] = ident
+                        i += 1
+                    return i
+
+                while kk < kend:
+                    nb = min(depth, kend - kk)
+                    gathered = [xs[cols[k0 + kk + j]] for j in range(nb)]
+                    for j in range(nb):
+                        i = close_rows(i, kk)
+                        st["s"] = add(st["s"], mul(vals[k0 + kk], gathered[j]))
+                        kk += 1
+                close_rows(i, kk)
+                carry.append(st["s"])
+                heads.append(st["hd"])
+                ends.append(st["has_end"])
+            scan = list(carry)
+            f = [ends[j] or v0 + j == 0 for j in range(chunk)]
+            for g0 in range(0, chunk, warp):
+                off = 1
+                while off < warp:
+                    old_v, old_f = scan[:], f[:]
+                    for j in range(g0 + off, g0 + warp):
+                        if not old_f[j]:
+                            scan[j] = add(old_v[j - off], old_v[j])
+                        f[j] = old_f[j] or old_f[j - off]
+                    off *= 2
+            tin = []
+            for g0 in range(0, chunk, warp):
+                tin.append(acc)
+                top = g0 + warp - 1
+                acc = scan[top] if f[top] else add(acc, scan[top])
+            for j in range(chunk):
+                if not f[j]:
+                    scan[j] = add(tin[j // warp], scan[j])
+            for j in range(chunk):
+                vg = v0 + j
+                if ends[j]:
+                    prev = ident if vg == 0 else scan[j - 1] if j else last
+                    val = add(prev, heads[j])
+                    fr = vfirst[vg]
+                    if fr == 0 and began_before:
+                        head[w] = val
+                    else:
+                        assert fr - rb not in ybuf
+                        ybuf[fr - rb] = val
+                if vg == threads - 1:
+                    tail[w] = scan[j]
+            last = scan[chunk - 1]
+            for r in range(vfirst[v0 + chunk] - rb):
+                if rb + r == 0 and began_before:
+                    assert r not in ybuf
+                    continue
+                out(i0 + rb + r, ybuf[r])
+    for row in seg.split_rows.tolist():
+        wa, wb = (ptr[row] + row) // L, (ptr[row + 1] + row) // L
+        parts = [tail[q] for q in range(wa, wb)] + [head[wb]]
+        lanes = [ident] * 32
+        for q, v in enumerate(parts):
+            lanes[q % 32] = add(lanes[q % 32], v)
+        for off in (16, 8, 4, 2, 1):
+            lanes = [add(lanes[j], lanes[j ^ off]) for j in range(32)]
+        out(row, lanes[0])
+    assert None not in y, "a row is never written"
+    return torch.tensor(y, dtype=torch.float32)
+
+
+LANES_CASES = [("rmat", 256, 16), ("rmat", 256, 64), ("single-dense-row", 48, 4),
+               ("empty-rows", 64, 8), ("fd", 64, 32)]
+
+
+@pytest.mark.parametrize("chunk", [4, 16])
+@pytest.mark.parametrize("sr_name", SEMIRING_NAMES)
+@pytest.mark.parametrize("family,n,window", LANES_CASES)
+def test_lanes_model_matches_plain_version(family, n, window, sr_name, chunk):
+    """The model of the lanes kernel's chunked schedule equals the plain
+    version exactly on integer operands under every semiring, on a HYB
+    heavy stream with the light result as its base and on a csr-seg
+    stream, whatever the chunk (one scan group or all of them)."""
+    ref_csr, x = int_operands(family, n, 2, sr_name)
+    sr = SEMIRINGS[sr_name]
+    hyb = t_convert(port_csr(ref_csr), "hyb", fill=sr.pad_value)
+    prep = tkl.prepare_hyb(hyb, seg_len=window, semiring=sr)
+    xt = torch.from_numpy(x)
+    base = tkl.spmv_ell_prepared(prep.light, xt, sr)
+    want = tkl.spmv_csr_seg_prepared(prep.heavy, xt, sr, base=base)
+    assert torch.equal(_lanes_model(prep.heavy, xt, sr, base, chunk=chunk),
+                       want)
+    seg = tkl.prepare_csr_seg(port_csr(ref_csr), seg_len=window)
+    assert torch.equal(_lanes_model(seg, xt, sr, None, chunk=chunk),
+                       tkl.spmv_csr_seg_prepared(seg, xt, sr))
+
+
+@pytest.mark.parametrize("chunk,depth", [(4, 1), (8, 3), (16, 8)])
+@pytest.mark.parametrize("sr_name", ["plus_times", "min_plus"])
+@pytest.mark.parametrize("family,n,window", [("rmat", 256, 16),
+                                             ("single-dense-row", 48, 4)])
+def test_lanes_model_folds_as_the_columns_kernel(family, n, window, sr_name,
+                                                 chunk, depth):
+    """On real values with -0.0, ±inf and NaN the lanes schedule gives the
+    bits of the single-column schedule (`test_torch_kernels._kernel_model`,
+    the order `spmv_csr_seg` folds in): chunks and gather depth change
+    which lane performs an ⊕, never the order."""
+    from test_torch_kernels import _kernel_model
+
+    ref_csr, _ = int_operands(family, n, 2, sr_name)
+    sr = SEMIRINGS[sr_name]
+    seg = tkl.prepare_csr_seg(port_csr(ref_csr), seg_len=window)
+    x = _special_batch(1, seg.n_cols, seed=window)[0]
+    base = _special_batch(1, seg.n_rows, seed=window + 1)[0]
+    want = _kernel_model(seg, x, sr, base, threads=16)
+    assert _same_bits(_lanes_model(seg, x, sr, base, chunk=chunk,
+                                   depth=depth), want)
+
+
+# ---------------------------------------------------------------------------
+# how the batched ELL kernel reads X: chosen on the host from the slab
+# ---------------------------------------------------------------------------
+
+def _scrambled_band(n):
+    band = tg.banded_matrix(n, 8, device="cpu")
+    perm = np.random.default_rng(0).permutation(n)
+    return treorder.Reordering(row_perm=perm, col_perm=perm).apply(band)
+
+
+def _plan(m, fmt, reorder="none", sr_name="plus_times"):
+    return tplan.compile(m, format=fmt, reorder=reorder, predictor="none",
+                         semiring=sr_name, device="cpu")
+
+
+def _slab_layout(plan):
+    """The gather layout `spmm_ell` picks for an ell plan's slab or a
+    hyb plan's light slab."""
+    p = plan.prep if plan.format_name == "ell" else plan.prep.light
+    return gather_layout(p.data, p.idx,
+                             SEMIRINGS[plan.semiring].pad_value)
+
+
+@pytest.mark.parametrize("sr_name", SEMIRING_NAMES)
+@pytest.mark.parametrize("log2n", [10, 12])
+def test_gather_layout_follows_the_slab(log2n, sr_name):
+    """FD's stencil and an RCM'd band read X as it lies; R-MAT's light
+    slab and FD's slab with its columns shuffled gather rows of the
+    interleaved copy."""
+    n = 1 << log2n
+    fd = _plan(tg.fd_matrix(n, device="cpu"), "ell", sr_name=sr_name)
+    band = _plan(_scrambled_band(n), "ell", reorder="rcm", sr_name=sr_name)
+    rmat = _plan(tg.rmat_matrix(n, device="cpu"), "hyb", sr_name=sr_name)
+    assert _slab_layout(fd) == "direct"
+    assert band.reordering is not None and _slab_layout(band) == "direct"
+    assert _slab_layout(rmat) == "xt"
+    p = fd.prep
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(n)).to(
+        torch.int32)
+    shuffled = perm[p.idx.long()]
+    assert gather_layout(p.data, shuffled,
+                             SEMIRINGS[sr_name].pad_value) == "xt"
+    # the scrambled band itself, before RCM, gathers at random
+    assert _slab_layout(_plan(_scrambled_band(n), "ell",
+                              sr_name=sr_name)) == "xt"
+
+
+def test_gather_layout_counts_only_real_entries():
+    """Padding slots (the absorbing value, column 0) do not count: a slab
+    of random rows stays "xt" however much padding sits beside it, and a
+    slab of padding only reads nothing ("direct")."""
+    rng = np.random.default_rng(3)
+    n, w = 4096, 4
+    idx = torch.from_numpy(rng.integers(0, n, (w, n)).astype(np.int32))
+    data = torch.ones(w, n)
+    data[1:] = 0.0
+    idx[1:] = 0
+    data[0, rng.random(n) < 0.8] = 0.0
+    assert gather_layout(data, idx, 0.0) == "xt"
+    assert gather_layout(torch.zeros(w, n), torch.zeros_like(idx),
+                             0.0) == "direct"
+    assert gather_layout(torch.ones(w, n), idx, 0.0) == "xt"
+
+
+@pytest.mark.parametrize("gather", ["direct", "xt"])
+def test_gather_layout_is_derived_and_never_saved(tmp_path, gather):
+    """The gather layout is derived from the slab and not kept with the
+    plan: an FD ELL plan (direct) and an R-MAT HYB plan (xt) saved, loaded
+    and saved again write the same bytes, the loaded slab picks the same
+    layout, and `execute_many` gives the same bits."""
+    if gather == "direct":
+        p = _plan(tg.fd_matrix(1 << 10, device="cpu"), "ell")
+    else:
+        p = _plan(tg.rmat_matrix(1 << 10, device="cpu"), "hyb")
+    assert _slab_layout(p) == gather
+    tplan.save_plan(p, str(tmp_path / "a"))
+    back, _ = tplan.load_plan(str(tmp_path / "a"), device="cpu")
+    tplan.save_plan(back, str(tmp_path / "b"))
+    files = sorted(q.relative_to(tmp_path / "a")
+                   for q in (tmp_path / "a").rglob("*") if q.is_file())
+    assert files
+    for q in files:
+        assert (tmp_path / "a" / q).read_bytes() == \
+            (tmp_path / "b" / q).read_bytes()
+    assert _slab_layout(back) == gather
+    X = _real_batch("plus_times", 3, p.n_cols, 7)
+    assert _same_bits(back.execute_many(X), p.execute_many(X))
