@@ -47,6 +47,28 @@ kernels/csrc/` and then runs these phases, one output line per step:
            `tc_bound_ms` (one pass on the tensor cores) beside it, and
            each flash cell's achieved TFLOP/s (those flops over
            kernel_ms);
+  lm       Granite-8B at its published size (configs/granite_8b.py: 36
+           layers, d 4096, 32/8 heads, bfloat16; seeded weights on the
+           card) served by `serve.Engine` (8 slots, 1024-token context,
+           16-token blocks) over 16 seeded requests (prompts of 16-600
+           tokens, budgets of 8-48): every prompt through the flash
+           kernel, every decode step through the paged kernel over the
+           dense cache.  Counts set to 0 just before the run and read
+           just after; every request must finish with its budget, both
+           kernels must launch, and a torch.profiler window over decode
+           steps 11-20 (device ms a step split into flash, paged, GEMM
+           and other, and the busy share) must hold the paged kernel's
+           records and no `einsum` or `scaled_dot_product_attention` op.
+           Prints steps, tokens, tokens/s, preemptions, prefill ms by
+           bucket and decode host ms a step.  Then two requests
+           teacher-forced (prefill and 16 decode steps) through the
+           kernel path and the plain path (`use_kernels=False`): logits
+           within rtol = atol = 0.08; and each kernel against its plain
+           version at the phase's shapes (flash 32 x 512 x 128 causal,
+           paged B 8 / H 32 / KVH 8 / S_max 1024 / block 16), one
+           bfloat16 ulp, timed beside its bound and the library call
+           (SDPA causal; SDPA with a length mask over the dense cache):
+           the JSON line's flash and paged entries are these;
   main     the main path at 2^22 rows: `fd_matrix` and `rmat_matrix`,
            each of the four graph drivers through the kernels, with every
            launch count set to 0 just before and read just after; then
@@ -219,8 +241,8 @@ Then one JSON line `{"kernels": [...]}` and, last,
 `{"ok": true, "device": {...}}`.  It exits nonzero and prints no result
 without a card, outside a checkout, or when any check fails.
 `--cpu-rehearsal` runs every phase at a small size on the CPU through
-the plain versions (no kernels, so no result either) to rehearse the
-control flow:
+the plain versions (no kernels, so no result either; the lm phase at
+granite-8b's `reduced()` config) to rehearse the control flow:
 
     python3 chip_smoke.py --cpu-rehearsal --log2n 17 --dia-log2n 12 \
         --reorder-log2n 14 --bell-log2n 13 --reps 3 --attn-seq 256 \
@@ -1302,6 +1324,43 @@ def paged_sass(lib: str, label: str, instances, dump=None) -> None:
             f"(max {max(batches, default=0)})")
 
 
+def time_entry(times, key, kern, plain, lib, need_bytes, flops, dtype,
+               label, reps, dev) -> None:
+    """Time `kern`, its plain version and the library call `lib` (or
+    None) into `times[key]`, with the bound: the larger of `need_bytes`
+    at the memory rate and `flops` at the peak for `dtype`."""
+    # operations at the card's peak for the inputs' type: bfloat16 on
+    # the tensor cores; float32 at the better of the FMA units and
+    # three TF32 products on the tensor cores (`tc3_bound_ms`, what
+    # float32 accuracy costs there); the FMA units' and one pass of
+    # the tensor cores' figures are printed beside it
+    f32 = dtype == torch.float32
+    bytes_ms = 1e3 * need_bytes / HBM_BYTES_PER_S
+    fma = 1e3 * flops / F32_OPS_PER_S
+    tc = 1e3 * flops / (TF32_TC_OPS_PER_S if f32 else BF16_TC_OPS_PER_S)
+    tc3 = 3 * tc if f32 else None
+    ops_ms = min(fma, tc3) if f32 else tc
+    bound = max(bytes_ms, ops_ms)
+    ms = time_ms(kern, reps, dev)
+    plain_ms = time_ms(plain, 3, dev)
+    lib_ms = time_ms(lib, reps, dev) if lib is not None else None
+    times[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                      bound_ms=bound, fma_bound_ms=fma, tc_bound_ms=tc,
+                      tc3_bound_ms=tc3,
+                      bound_by="bytes" if bytes_ms >= ops_ms
+                      else "operations")
+    rate = (f" tflops={flops / ms / 1e9:.1f}"
+            if key.startswith("flash") else "")
+    log(f"time {key} [{label}]: kernel_ms={ms:.4f}{rate} plain_ms="
+        f"{plain_ms:.4f} library_ms="
+        f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_bytes="
+        f"{need_bytes} flops={flops} bound_ms={bound:.4f} "
+        f"({ms / bound:.2f}x bound, by "
+        f"{times[key]['bound_by']}) fma_bound_ms={fma:.4f} "
+        f"tc_bound_ms={tc:.4f}"
+        + (f" tc3_bound_ms={tc3:.4f}" if f32 else ""))
+
+
 def run_attention(args, dev, K):
     """Drive `ops.flash_attention` and `ops.paged_attention` at
     Granite-8B's width, check each kernel against its plain version and
@@ -1426,36 +1485,8 @@ def run_attention(args, dev, K):
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def entry(key, kern, plain, lib, need_bytes, flops, dtype, label):
-        # operations at the card's peak for the inputs' type: bfloat16 on
-        # the tensor cores; float32 at the better of the FMA units and
-        # three TF32 products on the tensor cores (`tc3_bound_ms`, what
-        # float32 accuracy costs there); the FMA units' and one pass of
-        # the tensor cores' figures are printed beside it
-        f32 = dtype == torch.float32
-        bytes_ms = 1e3 * need_bytes / HBM_BYTES_PER_S
-        fma = 1e3 * flops / F32_OPS_PER_S
-        tc = 1e3 * flops / (TF32_TC_OPS_PER_S if f32 else BF16_TC_OPS_PER_S)
-        tc3 = 3 * tc if f32 else None
-        ops_ms = min(fma, tc3) if f32 else tc
-        bound = max(bytes_ms, ops_ms)
-        ms = time_ms(kern, reps, dev)
-        plain_ms = time_ms(plain, 3, dev)
-        lib_ms = time_ms(lib, reps, dev) if lib is not None else None
-        times[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound, fma_bound_ms=fma, tc_bound_ms=tc,
-                          tc3_bound_ms=tc3,
-                          bound_by="bytes" if bytes_ms >= ops_ms
-                          else "operations")
-        rate = (f" tflops={flops / ms / 1e9:.1f}"
-                if key.startswith("flash") else "")
-        log(f"time {key} [{label}]: kernel_ms={ms:.4f}{rate} plain_ms="
-            f"{plain_ms:.4f} library_ms="
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_bytes="
-            f"{need_bytes} flops={flops} bound_ms={bound:.4f} "
-            f"({ms / bound:.2f}x bound, by "
-            f"{times[key]['bound_by']}) fma_bound_ms={fma:.4f} "
-            f"tc_bound_ms={tc:.4f}"
-            + (f" tc3_bound_ms={tc3:.4f}" if f32 else ""))
+        time_entry(times, key, kern, plain, lib, need_bytes, flops, dtype,
+                   label, reps, dev)
 
     for name, seq, dt, c, w in flash_cases:
         q, k, v = inputs[name]
@@ -1514,6 +1545,369 @@ def run_attention(args, dev, K):
             f"{n}=" + ("not measured" if t is None else f"{t:.4f}")
             for n, t in traced.items()))
     return counts, errs, times
+
+
+# ---------------------------------------------------------------------------
+# lm: Granite-8B served through the decode engine
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "granite-8b"              # served at its published size
+LM_SEED = 23                        # weights and requests
+LM_ENGINE = dict(max_batch=8, max_context=1024, block_size=16)
+LM_REQUESTS, LM_PROMPT, LM_NEW = 16, (16, 600), (8, 48)
+LM_TRACE = (11, 20)                 # decode steps in the profiler window
+LM_FORCED = (2, 16)                 # teacher-forced: requests, decode steps
+LM_F32_TOL = 1e-3                   # float32 kernel path vs plain path
+LM_TOL = 0.08                       # the reference's cache-vs-forward bar
+LM_BF16_RATIO = 1.1                 # bf16 kernel path's error / plain's
+LM_TIME_REPS = 200                  # timed calls at the phase's shapes
+LM_FLASH_SHAPE = (32, 512, 128)     # (batch·heads, tokens, head_dim)
+LM_PAGED_SEQS = 8                   # the engine's slots
+PLAIN_OPS = ("aten::einsum", "scaled_dot_product")   # no kernel-path op
+
+
+def lm_requests(Request, vocab, n, seed):
+    """Seeded requests: prompts of LM_PROMPT tokens, budgets of LM_NEW."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        plen = int(rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1))
+        out.append(Request(req_id=i,
+                           prompt=rng.integers(1, vocab, plen).tolist(),
+                           max_new_tokens=int(rng.integers(LM_NEW[0],
+                                                           LM_NEW[1] + 1))))
+    return out
+
+
+def lm_split(recs) -> dict:
+    """Device ms of a trace's records: flash, paged, GEMM and other."""
+    split = dict.fromkeys(("flash", "paged", "gemm", "other"), 0.0)
+    for key, (_, t) in recs.items():
+        k = key.lower()
+        part = ("flash" if "flash_" in k else "paged" if "paged_" in k
+                else "gemm" if any(w in k for w in (
+                    "gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas"))
+                else "other")
+        split[part] += t / 1e3
+    return split
+
+
+def lm_engine_class(Engine, dev):
+    """The engine with a torch.profiler window (CPU and CUDA) over its
+    decode calls LM_TRACE[0]..LM_TRACE[1]: `window` is (wall ms, the
+    profiler), `trace_s` the seconds the profiler's stop took inside
+    the run."""
+
+    class TracedEngine(Engine):
+        calls = 0
+        window = None
+        trace_s = 0.0
+
+        def decode(self, tokens):
+            self.calls += 1
+            first, last = LM_TRACE
+            if dev.type == "cuda" and self.calls == first:
+                from torch.profiler import ProfilerActivity, profile
+
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.start()
+                self.t0 = time.perf_counter()
+            out = super().decode(tokens)
+            if dev.type == "cuda" and self.calls == last:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                self.prof.stop()
+                self.trace_s = time.perf_counter() - t1
+                self.window = (1e3 * (t1 - self.t0), self.prof)
+                del self.prof
+            return out
+
+    return TracedEngine
+
+
+def run_lm(args, dev, K, errs, times):
+    """Serve Granite-8B (its reduced config on the CPU) through the
+    port's engine: prefill on the flash kernel, decode on the paged
+    kernel.  Checks the requests, the launches and the trace, the kernel
+    path against the plain path on teacher-forced steps, each kernel
+    against its plain version at the phase's shapes; times both.
+    Returns the launch counts of the served path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = get_config(LM_ARCH)
+    if args.cpu_rehearsal:
+        cfg = cfg.reduced()
+    t0 = time.perf_counter()
+    params = registry.get_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(LM_SEED), dev)
+    sync(dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"lm model {cfg.name}: layers={cfg.n_layers} d={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab} {cfg.dtype} params={n_params} "
+        f"({n_params * 2 / 2 ** 30:.2f} GiB; param_count()="
+        f"{cfg.param_count():.0f}) init_s={time.perf_counter() - t0:.2f}")
+
+    # -- the served path: every count set to 0 just before, read after ---
+    ecfg = EngineConfig(**LM_ENGINE, seed=LM_SEED)
+    # one short request first loads the kernels and the GEMMs' plans
+    Engine(cfg, params, ecfg).run(lm_requests(Request, cfg.vocab, 1,
+                                              LM_SEED + 3))
+    eng = lm_engine_class(Engine, dev)(cfg, params, ecfg)
+    reqs = lm_requests(Request, cfg.vocab, LM_REQUESTS, LM_SEED)
+    budgets = {r.req_id: r.max_new_tokens for r in reqs}
+    sync(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.run(reqs)
+    sync(dev)
+    wall = time.perf_counter() - t0 - eng.trace_s
+    counts = K.launch_counts()
+    stats = eng.sched.stats()
+    n_tok = sum(len(v) for v in out.values())
+    log(f"lm launches {json.dumps(counts)}")
+    log(f"lm engine: requests={len(out)}/{len(reqs)} steps={stats['steps']} "
+        f"decode_steps={len(eng.decode_times)} prefills="
+        f"{len(eng.prefill_times)} tokens={n_tok} wall_s={wall:.3f} "
+        f"(the profiler's stop, {eng.trace_s:.3f} s, left out) "
+        f"tokens_per_s={n_tok / wall:.1f} preemptions="
+        f"{stats['preemptions']} prompt_tokens="
+        f"{sum(len(r.prompt) for r in reqs)}")
+    check({rid: len(v) for rid, v in out.items()} == budgets,
+          "lm: not every request finished with its budget")
+    if dev.type == "cuda":
+        for k in ("flash_attention", "paged_attention"):
+            check(counts[k] > 0, f"lm path launched {k} no time")
+    by_bucket: dict = {}
+    for bucket, s in eng.prefill_times:
+        by_bucket.setdefault(bucket, []).append(1e3 * s)
+    log("lm prefill ms by bucket: " + " ".join(
+        f"{b}:n={len(v)},median={np.median(v):.2f}"
+        for b, v in sorted(by_bucket.items())))
+    host = 1e3 * np.array([t for i, t in enumerate(eng.decode_times, 1)
+                           if not LM_TRACE[0] <= i <= LM_TRACE[1]])
+    log(f"lm decode host ms a step (traced steps left out): "
+        f"median={np.median(host):.3f} p90={np.percentile(host, 90):.3f} "
+        f"min={host.min():.3f} steps={host.size}")
+    if eng.window is None:
+        log("lm trace: not measured (no card)")
+    else:
+        wall_ms, prof = eng.window
+        avgs = prof.key_averages()
+        n = LM_TRACE[1] - LM_TRACE[0] + 1
+        # the kernels and copies alone: with CPU activity on, the ops
+        # that launched them carry the same device time again
+        recs = {}
+        for ev in avgs:
+            t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+            if t > 0 and ev.count and \
+                    ev.device_type == torch.autograd.DeviceType.CUDA:
+                recs[ev.key] = (ev.count, t)
+        split = lm_split(recs)
+        device = sum(split.values())
+        plain = sorted({ev.key for ev in avgs
+                        if any(w in ev.key for w in PLAIN_OPS)})
+        paged = {short_kernel(k): c for k, (c, _) in recs.items()
+                 if "paged_" in k}
+        log(f"lm trace decode steps {LM_TRACE[0]}-{LM_TRACE[1]}: wall_ms="
+            f"{wall_ms / n:.3f} device_ms={device / n:.3f} "
+            + " ".join(f"{k}_ms={v / n:.3f}" for k, v in split.items())
+            + f" busy_share={device / wall_ms:.3f} paged_records={paged} "
+            f"plain_ops={plain}")
+        check(bool(recs), "lm trace: the profiler recorded no device time")
+        check(sum(paged.values()) >= 2 * n * cfg.n_layers,
+              f"lm trace: {paged} paged records, not 2 a layer a step")
+        check(not plain, f"lm trace: plain-path ops {plain} on the kernel "
+              "path")
+    if dev.type == "cuda":
+        log(f"lm engine peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del eng
+
+    # -- teacher-forced: the kernel path against the plain path -----------
+    # bfloat16 first, as served, then the same weights in float32: at 36
+    # layers the bfloat16 rounding of the residual stream alone moves
+    # logits by about 0.1 (the plain path against the float32 one), so
+    # the float32 pair, which runs the same tables, lengths and cache
+    # view, is held to LM_F32_TOL, and the bfloat16 kernel path's mean
+    # and max error against float32 to the plain path's own
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 plain math
+    forced = lm_requests(Request, cfg.vocab, LM_FORCED[0], LM_SEED + 1)
+    steps = torch.from_numpy(np.random.default_rng(LM_SEED + 2).integers(
+        1, cfg.vocab, (LM_FORCED[0], LM_FORCED[1], 1)).astype(np.int32))
+
+    def teacher_forced(p, c, kern):
+        e = Engine(c, p, EngineConfig(
+            max_batch=LM_FORCED[0], max_context=LM_ENGINE["max_context"],
+            block_size=LM_ENGINE["block_size"]), use_kernels=kern)
+        rows = [[e.prefill_slot(i, r.prompt).float()]
+                for i, r in enumerate(forced)]
+        for t in range(LM_FORCED[1]):
+            step = e.decode(steps[:, t].to(dev)).float()
+            for i in range(LM_FORCED[0]):
+                rows[i].append(step[i])
+        return torch.stack([torch.stack(r) for r in rows])
+
+    bf16 = {kern: teacher_forced(params, cfg, kern) for kern in (True, False)}
+    p32 = _tree_map(params, lambda t: t.float())
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = {kern: teacher_forced(p32, c32, kern) for kern in (True, False)}
+    del p32
+    truth = f32[False]
+    err = float((f32[True] - truth).abs().max())
+    ok = bool(torch.isfinite(f32[True]).all()) and bool(torch.allclose(
+        f32[True], truth, rtol=LM_F32_TOL, atol=LM_F32_TOL))
+    check(ok, f"lm teacher-forced float32: kernel path differs from the "
+              f"plain path (max abs err {err:.3g}, rtol=atol {LM_F32_TOL})")
+    # (request, step, vocab) distances from the float32 plain path
+    dist = {kern: (bf16[kern] - truth).abs() for kern in (True, False)}
+    bar = float((bf16[True] - bf16[False]).abs().max())
+    over = float((~torch.isclose(bf16[True], bf16[False], rtol=LM_TOL,
+                                 atol=LM_TOL)).float().mean())
+    mean_ratio = float(dist[True].mean() / dist[False].mean())
+    max_ratio = float(dist[True].max() / dist[False].max())
+    # per (request, step): the worst ratio of means, for the record
+    per_row = dist[True].mean(-1) / dist[False].mean(-1)
+    ok16 = bool(torch.isfinite(bf16[True]).all()) \
+        and mean_ratio <= LM_BF16_RATIO and max_ratio <= LM_BF16_RATIO
+    check(ok16, f"lm teacher-forced bfloat16: the kernel path's error "
+                f"against float32 is {mean_ratio:.3f}x (mean) and "
+                f"{max_ratio:.3f}x (max) the plain path's (limit "
+                f"{LM_BF16_RATIO})")
+    log(f"lm teacher-forced {LM_FORCED[0]} requests (prompts "
+        f"{[len(r.prompt) for r in forced]}), prefill + {LM_FORCED[1]} "
+        f"decode steps: float32 kernels vs plain max_abs_err={err:.4g} "
+        f"(rtol=atol {LM_F32_TOL}) ok={ok}; bfloat16 kernels vs plain "
+        f"max_abs_err={bar:.4g} share over rtol=atol {LM_TOL}: {over:.3g}; "
+        f"against float32: kernels max {float(dist[True].max()):.4g} mean "
+        f"{float(dist[True].mean()):.4g}, plain max "
+        f"{float(dist[False].max()):.4g} mean {float(dist[False].mean()):.4g}"
+        f" (ratio mean {mean_ratio:.3f} max {max_ratio:.3f}, limit "
+        f"{LM_BF16_RATIO}) ok={ok16}; per request and step, mean ratio "
+        f"{float(per_row.min()):.3f}..{float(per_row.max()):.3f}; "
+        f"max|logit|={float(truth.abs().max()):.3g}")
+    del bf16, f32, truth, dist, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- each kernel against its plain version at the phase's shapes -----
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    bf = torch.bfloat16
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    bh, sq, hd = LM_FLASH_SHAPE
+    q, k, v = (randn((bh, sq, hd)) for _ in range(3))
+    attn_compare(errs, "flash_attention", f"lm {bh}x{sq}x{hd} causal",
+                 K.flash_attention(q, k, v, True, None),
+                 K.flash_attention_plain(q, k, v, True, None), "ulp")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # kernels of 0.04-0.07 ms: enough calls that the events' window is
+    # not one launch gap, and each call's device time traced beside it
+    reps = LM_TIME_REPS if dev.type == "cuda" else args.reps
+
+    def flash_library():
+        return sdpa(q[None], k[None], v[None], is_causal=True)
+
+    time_entry(times, "flash_attention lm",
+               lambda: K.flash_attention(q, k, v, True, None),
+               lambda: K.flash_attention_plain(q, k, v, True, None),
+               flash_library, 4 * q.numel() * q.element_size(),
+               4 * hd * bh * visible_pairs(sq, sq, True, None), bf,
+               f"lm prefill, {bh} heads x {sq} tokens, bfloat16", reps, dev)
+    lm_traced(times["flash_attention lm"], "flash_attention lm",
+              lambda: K.flash_attention(q, k, v, True, None), flash_library,
+              reps, dev)
+    del q, k, v
+
+    b, s_max = LM_PAGED_SEQS, LM_ENGINE["max_context"]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    block = LM_ENGINE["block_size"]
+    lengths = np.random.default_rng(LM_SEED).integers(1, s_max + 1, b)
+    lengths[0] = s_max                       # a full cache, read to its end
+    qd = randn((b, h, hd))
+    ck, cv = randn((b, s_max, kvh, hd)), randn((b, s_max, kvh, hd))
+    pool = (b * s_max // block, block, kvh, hd)
+    tables = torch.arange(b * s_max // block, dtype=torch.int32,
+                          device=dev).view(b, -1)
+    lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    paged_args = (qd, ck.view(pool), cv.view(pool), tables, lens)
+    attn_compare(errs, "paged_attention",
+                 f"lm B {b} H {h} KVH {kvh} S_max {s_max} block {block}",
+                 K.paged_attention(*paged_args),
+                 K.paged_attention_plain(*paged_args), "ulp")
+    mask = (torch.arange(s_max, device=dev)[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+
+    def library():
+        return sdpa(qd[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
+
+    lib_err = float((library()[:, :, 0].float()
+                     - K.paged_attention_plain(*paged_args).float()
+                     ).abs().max())
+    el = qd.element_size()
+    walked = -(-lengths.astype(np.int64) // block)
+    time_entry(times, "paged_attention lm",
+               lambda: K.paged_attention(*paged_args),
+               lambda: K.paged_attention_plain(*paged_args), library,
+               2 * qd.numel() * el + 2 * int(lengths.sum()) * kvh * hd * el
+               + 4 * int(walked.sum()) + 4 * b,
+               4 * hd * h * int(lengths.sum()), bf,
+               f"lm decode, {b} sequences of {int(lengths.min())}.."
+               f"{int(lengths.max())} tokens, GQA {h}/{kvh}, dense cache "
+               f"as a pool of {block}-token blocks; library: SDPA with a "
+               f"length mask, max_abs_err {lib_err:.3g} vs plain", reps, dev)
+    lm_traced(times["paged_attention lm"], "paged_attention lm",
+              lambda: K.paged_attention(*paged_args), library, reps, dev,
+              ("paged_split_kernel", "paged_merge_kernel"))
+    return counts
+
+
+def lm_traced(entry, key, kern, lib, reps, dev, parts=()) -> None:
+    """Log the traced device ms a call of `kern` (each of `parts` and
+    their sum) and of the library call `lib`, beside the events' times
+    in `entry`, where they are kept as `device_ms` and
+    `library_device_ms` (None on the CPU)."""
+    kt = trace_ms(kern, reps, dev, list(parts) or None)
+    lt = trace_ms(lib, reps, dev)["all"]
+    dev_ms = (None if any(t is None for t in kt.values())
+              else sum(kt.values()))
+    entry.update(device_ms=dev_ms, library_device_ms=lt)
+
+    def fmt(t):
+        return "not measured" if t is None else f"{t:.4f}"
+
+    log(f"time {key} traced over {reps} calls: "
+        + "".join(f"{n}={fmt(t)} " for n, t in kt.items() if parts)
+        + f"device_ms={fmt(dev_ms)} (kernel_ms {entry['ms']:.4f}) "
+        f"library_device_ms={fmt(lt)} (library_ms "
+        f"{fmt(entry['library_ms'])})")
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 # ---------------------------------------------------------------------------
@@ -2027,6 +2421,25 @@ def timings(K, SR, plans, dev, reps, adjacency=None):
               f"{slab_gather(lp, pt)}", None if k == 64 else
               f"spmm_ell k={k}")
         del X, Xn
+
+    # R-MAT's light slab through the Xt kernel (timed by tools/spmm_ab.py):
+    # its bounds from its shapes -- the slab, X and Y once; the gather
+    # bound reads each real entry's row of the interleaved copy once
+    plan = plans[("rmat", "pagerank")]
+    lp = plan.prep.light
+    hyb = plan.container            # PageRank weights are never 0
+    light_nnz = int((hyb.data != hyb.fill).sum())
+    slab = layout_bytes(lp.data, lp.idx)
+    for k in (4, 16, 64):
+        bound = 1e3 * (slab + 4 * k * (lp.n_cols + lp.n_rows)) \
+            / HBM_BYTES_PER_S
+        gather = 1e3 * (slab + 4 * k * (light_nnz + lp.n_rows)) \
+            / HBM_BYTES_PER_S
+        log(f"bound spmm_ell [rmat pagerank light slab, W="
+            f"{lp.data.shape[0]}, k={k}, gather {slab_gather(lp, pt)}]: "
+            f"n={lp.n_rows} nnz={light_nnz} slab_bytes={slab} bound_ms="
+            f"{bound:.4f} (slab, X and Y once) gather_bound_ms={gather:.4f} "
+            f"(slab, each real entry's Xt row and Y once)")
 
     # padded CSR: each row walks its own slots, so no padding slot is read
     plan = plans[("fd", "pagerank")]
@@ -3185,6 +3598,17 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
+    # -- lm: Granite-8B served through the engine -----------------------------
+    t0 = time.perf_counter()
+    lm_times: dict = {}
+    lm_counts = run_lm(args, dev, K, attn_errs, lm_times)
+    log(f"lm phase_s={time.perf_counter() - t0:.1f}")
+    if dev.type == "cuda":
+        log(f"lm peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
     # -- main path ------------------------------------------------------------
     n = 1 << args.log2n
     t0 = time.perf_counter()
@@ -3244,8 +3668,8 @@ def main(argv=None) -> int:
     log(f"dia pagerank kernels vs plain: iters {dres.n_iters} == "
         f"{dplain.n_iters}")
     compare_pagerank("dia", dres, dplain)
-    phase_counts = {"attention": attn_counts, "main": counts,
-                    "dia": dia_counts}
+    phase_counts = {"attention": attn_counts, "lm": lm_counts,
+                    "main": counts, "dia": dia_counts}
 
     # -- the reordering, per-call and BELL paths ------------------------------
     plans = {}
@@ -3308,6 +3732,7 @@ def main(argv=None) -> int:
     times = timings(K, SR, plans, dev, args.reps,
                     rb["adj"] if rb is not None else None)
     times.update(attn_times)
+    times.update(lm_times)
     if dev.type == "cuda":
         log(f"time peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -3340,7 +3765,8 @@ def main(argv=None) -> int:
 
     kernels = []
     for name in K.KERNELS:
-        t = times[name]
+        # the attention kernels at the shapes of the served model
+        t = times.get(f"{name} lm", times[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -1,0 +1,11 @@
+"""Snowflake Arctic -- 128-expert top-2 MoE + dense residual [hf:Snowflake/snowflake-arctic-base]."""
+from .base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="arctic-480b", family="moe",
+    n_layers=35, d_model=7168, n_heads=56, n_kv_heads=8,
+    d_ff=4864, vocab=32000,
+    moe=MoEConfig(n_experts=128, top_k=2, d_expert_ff=4864,
+                  dense_residual=True),
+    source="hf:Snowflake/snowflake-arctic-base; dense-MoE hybrid residual",
+)

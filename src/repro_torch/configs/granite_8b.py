@@ -1,0 +1,9 @@
+"""IBM Granite 8B code -- llama-arch dense GQA [arXiv:2405.04324]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=14336, vocab=49152,
+    source="arXiv:2405.04324; llama-arch, code",
+)

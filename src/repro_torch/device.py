@@ -35,10 +35,15 @@ def to_numpy(a) -> np.ndarray:
 
 
 def to_tensor(a, device) -> torch.Tensor:
-    """numpy array -> tensor on `device`, keeping its dtype and bytes."""
+    """numpy array -> tensor on `device`, keeping its dtype and bytes; a
+    bfloat16 array (numpy's `ml_dtypes` type, which `torch.from_numpy`
+    refuses) crosses as its raw 16-bit words."""
     if isinstance(a, torch.Tensor):
         return a.to(device)
     a = np.require(np.asarray(a), requirements=["C", "W"])
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
 
 

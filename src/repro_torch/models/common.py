@@ -1,0 +1,406 @@
+"""Shared model building blocks: the counterpart of `repro.models.common`.
+
+Conventions (the reference's):
+  * init_* functions return dicts of tensors, drawn from an explicit
+    `torch.Generator` on an explicit device;
+  * apply functions are plain functions on tensors; dtype policy: params
+    in cfg.dtype, norms and softmax accumulate in float32;
+  * weights are (d_in, d_out), so `x @ w` is the reference's product.
+
+Attention has two routes, chosen by `use_kernels`:
+  * the kernels (default): a prompt (s > 1 at cache offset 0, or a
+    forward without a cache) runs `kernels.ops.flash_attention` over the
+    prompt's own keys, KV heads broadcast by `repeat_interleave`; a decode
+    step (s == 1) runs `kernels.ops.paged_attention` over the dense
+    (B, S_max, KVH, hd) cache read as a pool of B·S_max/block blocks,
+    sequence b's table b·(S_max/block) + j, its length min(pos + 1,
+    S_max).  Both compute the reference's function: causal keys past the
+    prompt and cache rows past pos carry no weight there.  CUDA tensors
+    launch the kernels, CPU tensors run their plain versions;
+  * the plain attention (`use_kernels=False`): `_sdpa_chunked`, the
+    reference's query-chunked softmax over the whole cache, transcribed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+Params = Dict[str, Any]
+
+ATTN_CHUNK = 1024      # query-chunk size for chunked attention
+ATTN_SCORE_BUDGET = 1 << 22   # target elements per (chunk x skv) score slab
+PAGED_BLOCK = 16       # tokens a block of the dense cache read as a pool
+NEG_INF = -1e30        # the reference's mask fill
+
+
+def attn_chunk_for(skv: int) -> int:
+    """Adapt the query-chunk so the transient score tensor stays bounded:
+    32k-KV prefill uses 128-query chunks, 4k training keeps 1024."""
+    return int(min(ATTN_CHUNK, max(128, ATTN_SCORE_BUDGET // max(skv, 1))))
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               device, scale: float | None = None) -> torch.Tensor:
+    scale = scale if scale is not None else (1.0 / np.sqrt(d_in))
+    w = torch.randn((d_in, d_out), generator=gen, device=device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
+               device) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, device=device)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg: ModelConfig, device, d: Optional[int] = None) -> Params:
+    d = d or cfg.d_model
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "ln":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6
+               ) -> torch.Tensor:
+    xf = x.float()
+    if "bias" in p:   # LayerNorm
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:             # RMSNorm
+        ms = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (partial rotary supported: StableLM rope_pct=0.25)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(hd_rot: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd_rot, 2, dtype=torch.float32,
+                                         device=device) / hd_rot))
+
+
+def rope_dims(hd: int, rope_pct: float) -> int:
+    """Leading lanes of a head that rotate (even; 0 = none)."""
+    if rope_pct <= 0.0:
+        return 0
+    hd_rot = int(hd * rope_pct)
+    return hd_rot - hd_rot % 2
+
+
+def rope_tables(positions: torch.Tensor, hd_rot: int, theta: float):
+    """(cos, sin) of shape (..., S, 1, hd_rot/2) in float32: what every
+    layer of one forward shares."""
+    freqs = rope_frequencies(hd_rot, theta, positions.device)
+    angles = positions[..., None].float() * freqs              # (...,S,hr/2)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rope_pct: float = 1.0, tables=None) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  The
+    reference's pairing: lanes 0::2 and 1::2 rotate together and are
+    stacked back interleaved (not rotate-half); `x * cos` promotes a
+    bfloat16 x to float32, and the result is cast back once.  `tables`:
+    `rope_tables(positions, ...)`, when the caller made them already."""
+    hd_rot = rope_dims(x.shape[-1], rope_pct)
+    if hd_rot == 0:
+        return x
+    cos, sin = tables if tables is not None else \
+        rope_tables(positions, hd_rot, theta)
+    x_rot, x_pass = x[..., :hd_rot], x[..., hd_rot:]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    rotated = torch.stack([o1, o2], dim=-1).reshape(x_rot.shape)
+    return torch.cat([rotated.to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, chunked, optional sliding window / qk-norm)
+# ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    d, hd = cfg.d_model, cfg.hd
+    dt = dtype_of(cfg)
+    p = {
+        "wq": dense_init(gen, d, cfg.n_heads * hd, dt, device),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dt, device),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dt, device),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, dt, device),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                            ("bv", cfg.n_kv_heads)):
+            p[name] = torch.zeros((width * hd,), dtype=dt, device=device)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = {"scale": torch.ones((hd,), dtype=torch.float32,
+                                           device=device)}
+    return p
+
+
+def _qk_norm(p, x, eps=1e-6):
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+
+
+def _sdpa_chunked(q, k, v, *, causal: bool, window: Optional[int],
+                  q_offset, chunk: Optional[int] = None) -> torch.Tensor:
+    """softmax(QK^T)V with queries in chunks: the plain attention.
+
+    q: (B, Sq, H, hd)   k/v: (B, Skv, KVH, hd) with H = G*KVH
+    q_offset: int, or a (B,) tensor -- position of q[0] within the kv
+    timeline.  The reference's masks (-1e30 fill) and float32 math; its
+    causal-unrolled variant (`repro.models.tuning`) is bitwise the same
+    function."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / np.sqrt(hd)
+    qg = q.reshape(b, sq, kvh, g, hd)
+    k_idx = torch.arange(skv, device=q.device)
+
+    chunk = min(chunk if chunk is not None else attn_chunk_for(skv), sq)
+    n_chunks = sq // chunk if sq % chunk == 0 else 1
+    if sq % chunk != 0:
+        chunk = sq
+
+    # q_offset may be a scalar (train/prefill) or a (B,) vector (serving
+    # slots at different depths); both broadcast to a (B|1, chunk) q_idx
+    q_off = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for ci in range(n_chunks):
+        qc = qg[:, ci * chunk:(ci + 1) * chunk].float()
+        s = torch.einsum("bqkgd,bskd->bqkgs", qc, kf) * scale
+        q_idx = q_off + ci * chunk + torch.arange(chunk,
+                                                  device=q.device)[None, :]
+        mask = torch.ones(q_idx.shape + (skv,), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= q_idx[..., None] >= k_idx
+        if window is not None:
+            mask &= (q_idx[..., None] - k_idx) < window
+        s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bqkgs,bskd->bqkgd", p, vf))
+    out = torch.cat(outs, dim=1)
+    return out.reshape(b, sq, h, hd)
+
+
+def _flash(q, k, v, *, causal: bool, window: Optional[int]):
+    """Attention of (B, S, H, hd) queries over their own (B, S, KVH, hd)
+    keys through the flash kernel -> (B, S, H, hd)."""
+    g = q.shape[2] // k.shape[2]
+
+    def heads_first(t):
+        return t.transpose(1, 2).contiguous()
+
+    out = ops.flash_attention(heads_first(q),
+                              heads_first(k.repeat_interleave(g, dim=2)),
+                              heads_first(v.repeat_interleave(g, dim=2)),
+                              causal=causal, window=window)
+    return out.transpose(1, 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheIndex:
+    """Where one forward writes the dense cache, and what its decode
+    kernel reads: made once, shared by every layer.
+
+    s > 1: `start`, the write offset (the reference's dynamic update
+    slice at pos[0], clamped so the update fits).  s == 1: `rows`, `at`
+    (pos clamped to S_max - 1) and `live` (pos < S_max: a slot past the
+    end writes nothing, as the reference's one-hot select); on the
+    kernel path `tables`, `lengths` (min(pos + 1, S_max)) and `block`,
+    the paged view of the cache."""
+    start: Optional[int] = None
+    rows: Optional[torch.Tensor] = None
+    at: Optional[torch.Tensor] = None
+    live: Optional[torch.Tensor] = None
+    tables: Optional[torch.Tensor] = None
+    lengths: Optional[torch.Tensor] = None
+    block: int = 0
+
+
+def cache_index(cache_pos: torch.Tensor, s_max: int, s: int,
+                use_kernels: bool) -> CacheIndex:
+    if s > 1:
+        offsets = cache_pos.tolist()
+        if use_kernels and any(offsets):
+            raise ValueError(
+                f"a {s}-token call at cache offsets {offsets}: the flash "
+                "kernel attends a prompt over its own keys from position 0 "
+                "only; run use_kernels=False for a multi-token call at a "
+                "nonzero offset")
+        return CacheIndex(start=min(max(offsets[0], 0), s_max - s))
+    dev = cache_pos.device
+    b = cache_pos.shape[0]
+    pos = cache_pos.long()
+    idx = CacheIndex(rows=torch.arange(b, device=dev),
+                     at=pos.clamp(max=s_max - 1), live=pos < s_max)
+    if not use_kernels:
+        return idx
+    block = math.gcd(s_max, PAGED_BLOCK)
+    n = s_max // block
+    tables = torch.arange(b * n, dtype=torch.int32, device=dev).view(b, n)
+    lengths = (pos + 1).clamp(max=s_max).to(torch.int32)
+    return dataclasses.replace(idx, tables=tables, lengths=lengths,
+                               block=block)
+
+
+def _write(c: torch.Tensor, new: torch.Tensor, idx: CacheIndex) -> None:
+    """New K or V rows (B, s, KVH, hd) into the cache c, in place."""
+    new = new.to(c.dtype)
+    if idx.start is not None:
+        c[:, idx.start:idx.start + new.shape[1]] = new
+        return
+    keep = c[idx.rows, idx.at]
+    c.index_put_((idx.rows, idx.at),
+                 torch.where(idx.live[:, None, None], new[:, 0], keep))
+
+
+def _paged(q, ck, cv, idx: CacheIndex):
+    """One query a sequence (B, 1, H, hd) over the dense cache through
+    the paged kernel -> (B, 1, H, hd)."""
+    b, _, h, hd = q.shape
+    s_max, kvh = ck.shape[1], ck.shape[2]
+    shape = (b * s_max // idx.block, idx.block, kvh, hd)
+    out = ops.paged_attention(q.reshape(b, h, hd).contiguous(),
+                              ck.view(shape), cv.view(shape), idx.tables,
+                              idx.lengths)
+    return out.reshape(b, 1, h, hd)
+
+
+def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, *, causal: bool = True,
+                    cache: Optional[Params] = None, cache_pos=None,
+                    index: Optional[CacheIndex] = None, rope=None,
+                    use_kernels: bool = True):
+    """Returns (out, new_cache).  Self-attention.
+
+    cache: {'k','v'}: (B, S_max, KVH, hd), written IN PLACE and returned
+    (the reference is functional and returns new arrays); cache_pos:
+    (B,) write positions.  `index`: `cache_index(...)` and `rope`:
+    `rope_tables(...)`, when the caller made them for every layer."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = _qk_norm(p["q_norm"], q)
+        k = _qk_norm(p["k_norm"], k)
+    if cfg.rope_pct > 0:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct, rope)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct, rope)
+
+    new_cache = None
+    if cache is None:
+        if use_kernels:
+            out = _flash(q, k, v, causal=causal, window=cfg.attn_window)
+        else:
+            out = _sdpa_chunked(q, k, v, causal=causal,
+                                window=cfg.attn_window, q_offset=0)
+    else:
+        if use_kernels and s == 1 and cfg.attn_window is not None:
+            raise ValueError(
+                f"attn_window={cfg.attn_window}: the paged decode kernel "
+                "has no window mask; decode with use_kernels=False")
+        ck, cv = cache["k"], cache["v"]
+        if index is None:
+            index = cache_index(cache_pos, ck.shape[1], s, use_kernels)
+        _write(ck, k, index)
+        _write(cv, v, index)
+        new_cache = {"k": ck, "v": cv}
+        if not use_kernels:
+            out = _sdpa_chunked(q, ck, cv, causal=True,
+                                window=cfg.attn_window, q_offset=cache_pos)
+        elif s > 1:
+            out = _flash(q, k.to(ck.dtype), v.to(cv.dtype), causal=True,
+                         window=cfg.attn_window)
+        else:
+            out = _paged(q, ck, cv, index)
+    out = out.to(x.dtype).reshape(b, s, cfg.n_heads * hd)
+    return out @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, device,
+             d_ff: Optional[int] = None) -> Params:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    dt = dtype_of(cfg)
+    p = {"w_up": dense_init(gen, d, ff, dt, device),
+         "w_down": dense_init(gen, ff, d, dt, device)}
+    if cfg.act == "swiglu":
+        p["w_gate"] = dense_init(gen, d, ff, dt, device)
+    return p
+
+
+def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    up = x @ p["w_up"]
+    if cfg.act == "swiglu":
+        up = F.silu(x @ p["w_gate"]) * up
+    else:
+        up = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
+    return up @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked over sequence)
+# ---------------------------------------------------------------------------
+
+def lm_loss(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+            n_chunks: int = 8) -> torch.Tensor:
+    """Cross-entropy( x @ head , labels ) without materializing full logits.
+
+    x: (B, S, d), head: (d, V), labels: (B, S) int (-1 = masked).
+    Chunked over S: transient logits are (B, S/n_chunks, V)."""
+    b, s, _ = x.shape
+    if s % n_chunks != 0:
+        n_chunks = 1
+    cs = s // n_chunks
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        xi, li = x[:, c * cs:(c + 1) * cs], labels[:, c * cs:(c + 1) * cs]
+        logits = (xi @ head).float()                   # (B, cs, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, li.clamp(min=0).long()[..., None])[..., 0]
+        valid = (li >= 0).float()
+        tot = tot + ((logz - gold) * valid).sum()
+        cnt = cnt + valid.sum()
+    return tot / cnt.clamp(min=1.0)
+

@@ -1,8 +1,12 @@
-"""Serving: the paged KV pool -- host-side block allocator and the
-device-side pool, scatter and gather.  The scheduler and decode engine of
-the reference's `serve/` wait for the model layers (ROADMAP A11)."""
+"""Serving: paged KV blocks, continuous-batching scheduler, decode
+engine -- the host-side block allocator, the device-side pool with its
+scatter and gather, the reference's scheduler, and the engine that
+serves a decoder LM through the flash and paged attention kernels."""
+from .engine import Engine, EngineConfig, make_engine
 from .kv_blocks import (BlockAllocator, PoolConfig, gather_kv, init_pool,
                         pool_from_numpy, write_token)
+from .scheduler import Request, Scheduler, Slot
 
-__all__ = ["BlockAllocator", "PoolConfig", "gather_kv", "init_pool",
-           "pool_from_numpy", "write_token"]
+__all__ = ["Engine", "EngineConfig", "make_engine", "BlockAllocator",
+           "PoolConfig", "gather_kv", "init_pool", "pool_from_numpy",
+           "write_token", "Request", "Scheduler", "Slot"]

@@ -106,14 +106,7 @@ def pool_from_numpy(pool: dict, device=None) -> dict:
     bfloat16 array (numpy's `ml_dtypes` type) crosses as its raw 16-bit
     words."""
     dev = resolve_device(device)
-    out = {}
-    for name in ("k", "v"):
-        a = np.asarray(pool[name])
-        if a.dtype.name == "bfloat16":
-            out[name] = to_tensor(a.view(np.uint16), dev).view(torch.bfloat16)
-        else:
-            out[name] = to_tensor(a, dev)
-    return out
+    return {name: to_tensor(pool[name], dev) for name in ("k", "v")}
 
 
 def write_token(pool: dict, layer: int, block_ids: torch.Tensor,

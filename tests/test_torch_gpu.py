@@ -990,3 +990,94 @@ def test_graph_cell_runs_through_the_kernels(cuda):
     assert got["graph|rmat|8|none|-|1|-|-|bfs"]["spmv_csr_seg"] == \
         pts[1].n_iters
     assert isinstance(pts[0], sweep.GraphPoint)
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: prefill on the flash kernel, decode on the paged one
+# ---------------------------------------------------------------------------
+
+def _card_lm_config(dtype):
+    """Granite's family at a small width with the kernels' head size:
+    2 layers, 4 query heads, 2 KV heads, head_dim 128."""
+    from repro_torch.configs import CONFIGS
+
+    return dataclasses.replace(CONFIGS["granite-8b"].reduced(), n_heads=4,
+                               n_kv_heads=2, head_dim=128, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_lm_kernel_path_matches_the_plain_path(cuda, dtype):
+    """Prefill (the flash kernel) and teacher-forced decode steps (the
+    paged kernel over the dense cache) against the plain attention on
+    the same card, within the reference's cache bar (bfloat16) or rtol
+    1e-4 / atol 1e-5 (float32); each kernel launched once a layer."""
+    from repro_torch.models import registry, transformer
+
+    cfg = _card_lm_config(dtype)
+    api = registry.get_model(cfg)
+    params = api.init(torch.Generator(device=cuda).manual_seed(2), cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (3, 40)).astype(np.int32)).to(cuda)
+    tol = dict(rtol=0.08, atol=0.08) if dtype == "bfloat16" else \
+        dict(rtol=1e-4, atol=1e-5)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for kern in (True, False):
+        reset_launch_counts()
+        logits, cache = api.prefill(params, {"tokens": toks[:, :32]}, 64,
+                                    use_kernels=kern)
+        out = [logits[:, -1]]
+        for t in range(32, 40):
+            step, cache = api.decode_step(params, cache, toks[:, t:t + 1],
+                                          use_kernels=kern)
+            out.append(step[:, 0])
+        torch.cuda.synchronize()
+        runs[kern] = (torch.stack(out, 1).float(), launch_counts())
+        assert transformer.init_cache(cfg, 1, 8, cuda)["pos"].is_cuda
+    got, counts = runs[True]
+    want, plain_counts = runs[False]
+    assert torch.isfinite(got).all()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["paged_attention"] == 8 * cfg.n_layers
+    assert sum(plain_counts.values()) == 0
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_lm_engine_idle_slot_past_max_context(cuda):
+    """A pool that admits one request at a time keeps two slots idle
+    while four requests run, so their pos passes max_context: the kernel
+    path's engine finishes with no device assert and no NaN, and its
+    greedy tokens (float32) equal the plain path's."""
+    from repro_torch.models import registry
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = _card_lm_config("float32")
+    params = registry.get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(4), cuda)
+    rng = np.random.default_rng(5)
+    lengths = [(9, 6), (8, 7), (10, 5), (9, 6)]
+    ecfg = EngineConfig(max_batch=3, max_context=16, block_size=4,
+                        pool_blocks=4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompts = [rng.integers(1, cfg.vocab, p).tolist() for p, _ in lengths]
+    out = {}
+    for kern in (True, False):
+        eng = Engine(cfg, params, ecfg, use_kernels=kern)
+        reset_launch_counts()
+        out[kern] = eng.run([Request(req_id=i, prompt=list(p),
+                                     max_new_tokens=m)
+                             for i, (p, (_, m)) in enumerate(
+                                 zip(prompts, lengths))])
+        torch.cuda.synchronize()
+        assert max(eng.cache["pos"].tolist()) > ecfg.max_context
+        for layer in eng.cache["layers"]:
+            assert torch.isfinite(layer["kv"]["k"]).all()
+        if kern:
+            assert launch_counts()["paged_attention"] > 0
+            logits = eng.decode(torch.zeros((3, 1), dtype=torch.int32,
+                                            device=cuda))
+            torch.cuda.synchronize()
+            assert torch.isfinite(logits).all()
+    assert out[True] == out[False]
+    assert {r: len(v) for r, v in out[True].items()} == \
+        {i: m for i, (_, m) in enumerate(lengths)}

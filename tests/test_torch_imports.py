@@ -108,6 +108,27 @@ SLICE_MODULES = {
     "repro_torch.core.traffic": ("TrafficReport", "gather_policy",
                                  "stream_policy", "col_blocked_policy",
                                  "bell_policy"),
+    # the LM serving slice: configs, the decoder, scheduler and engine
+    "repro_torch.configs.base": ("ModelConfig", "MoEConfig", "SSMConfig",
+                                 "ShapeConfig", "SHAPES",
+                                 "applicable_shapes"),
+    "repro_torch.configs.spmv_paper": ("SpMVExperimentConfig", "CONFIG"),
+    "repro_torch.distributed.api": ("constrain",),
+    "repro_torch.models.common": (
+        "apply_norm", "apply_rope", "apply_attention", "apply_mlp",
+        "_qk_norm", "_sdpa_chunked", "lm_loss", "init_norm",
+        "init_attention", "init_mlp", "dense_init", "embed_init",
+        "attn_chunk_for", "dtype_of"),
+    "repro_torch.models.transformer": (
+        "layer_layout", "split_layout", "init_params", "init_cache",
+        "slice_cache", "merge_cache", "forward", "head_matrix", "loss_fn",
+        "prefill", "decode_step"),
+    "repro_torch.models.registry": ("ModelAPI", "get_model",
+                                    "random_train_batch"),
+    "repro_torch.models.convert": ("params_from_reference",),
+    "repro_torch.serve.scheduler": ("Request", "Slot", "Scheduler"),
+    "repro_torch.serve.engine": ("EngineConfig", "Engine", "make_engine"),
+    "repro_torch.launch.serve": ("synthetic_requests", "main"),
 }
 
 #: names each package exports, as the reference's `__init__` does
@@ -121,6 +142,9 @@ PACKAGE_EXPORTS = {
     "repro_torch.plan": ("save_plan", "load_plan", "plan_state",
                          "plan_from_state", "harvest"),
     "repro_torch.distributed": ("row_mesh", "spmv_row_sharded"),
+    "repro_torch.serve": ("Engine", "EngineConfig", "make_engine",
+                          "Request", "Scheduler"),
+    "repro_torch.models": ("ModelAPI", "get_model"),
 }
 
 
