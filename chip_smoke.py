@@ -69,6 +69,33 @@ kernels/csrc/` and then runs these phases, one output line per step:
            bfloat16 ulp, timed beside its bound and the library call
            (SDPA causal; SDPA with a length mask over the dense cache):
            the JSON line's flash and paged entries are these;
+  train    StableLM-1.6B (configs/stablelm_1_6b.py, the reference
+           launcher's default: 24 layers, d 2048, 32 heads, vocab
+           100,352, bfloat16) trained at its published size through the
+           port's train step (`train.loop.make_train_step`: autograd over
+           `loss_fn(use_kernels=False)`, the plain attention the
+           reference trains with, remat none; AdamW from
+           `launch.steps.optimizer_for`, lr 3e-4, warmup 2): seeded
+           weights on the card, batches of 8 x 512 tokens from
+           `SyntheticLM(seed=0)`, 10 steps with loss, grad_norm, lr and
+           wall ms each; the median step, tokens/s, model TFLOP/s (6 N
+           tokens + 12 L B S^2 d a step) against 989 and the peak device
+           memory; a torch.profiler window over steps 6-8 splits a
+           step's device ms into the weight GEMMs, the attention (its
+           batched einsums, softmax and mask), the optimizer and other,
+           with the busy share.  Fails unless every loss and grad_norm is
+           finite, the last step repeated from its saved state gives its
+           loss within rel 1e-6 (bit for bit printed), no attention
+           kernel launches in the phase; the same config at 2 layers in
+           float32 (TF32 off, batch 2 x 128; parameters drawn on the card
+           and copied to the CPU) on the card against the CPU:
+           loss within rtol 1e-5, each gradient leaf within 1e-4 of its
+           max |g|, and one AdamW update from the CPU's gradients within
+           rtol 1e-6 (atol 1e-6 of the leaf's max); then the reduced
+           config learns one batch (lr 3e-3, 30 steps: the loss drops by
+           0.5) and `launch.train.main` ends where it ended without a
+           crash after a crash at step 7 (last step equal, final loss
+           within rel 1e-5);
   main     the main path at 2^22 rows: `fd_matrix` and `rmat_matrix`,
            each of the four graph drivers through the kernels, with every
            launch count set to 0 just before and read just after; then
@@ -1637,6 +1664,7 @@ def run_lm(args, dev, K, errs, times):
     from repro_torch.configs import get_config
     from repro_torch.models import registry
     from repro_torch.serve import Engine, EngineConfig, Request
+    from repro_torch.tree import leaves, tree_map
 
     cfg = get_config(LM_ARCH)
     if args.cpu_rehearsal:
@@ -1645,7 +1673,7 @@ def run_lm(args, dev, K, errs, times):
     params = registry.get_model(cfg).init(
         torch.Generator(device=dev).manual_seed(LM_SEED), dev)
     sync(dev)
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     log(f"lm model {cfg.name}: layers={cfg.n_layers} d={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} "
         f"vocab={cfg.vocab} {cfg.dtype} params={n_params} "
@@ -1754,7 +1782,7 @@ def run_lm(args, dev, K, errs, times):
         return torch.stack([torch.stack(r) for r in rows])
 
     bf16 = {kern: teacher_forced(params, cfg, kern) for kern in (True, False)}
-    p32 = _tree_map(params, lambda t: t.float())
+    p32 = tree_map(lambda t: t.float(), params)
     c32 = dataclasses.replace(cfg, dtype="float32")
     f32 = {kern: teacher_forced(p32, c32, kern) for kern in (True, False)}
     del p32
@@ -1891,23 +1919,281 @@ def lm_traced(entry, key, kern, lib, reps, dev, parts=()) -> None:
         f"{fmt(entry['library_ms'])})")
 
 
-def _tree_map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _tree_map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(v, fn) for v in tree]
-    return fn(tree)
+# ---------------------------------------------------------------------------
+# train: StableLM-1.6B trained through the port's train step
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "stablelm-1.6b"        # the reference launcher's default
+TRAIN_SEED = 24                     # weights
+TRAIN_STEPS = 10
+TRAIN_TRACE = (6, 8)                # steps in the profiler window
+TRAIN_REPEAT = 9                    # the step repeated from its state
+TRAIN_PEAK_TFLOPS = 989.0           # H100 SXM bf16 dense, data sheet
+TRAIN_CMP = (2, 2, 128)             # card vs CPU: layers, batch, tokens
+TRAIN_GRAD_TOL = 1e-4               # of each leaf's max |g_cpu|
+TRAIN_DESCENT = dict(lr=3e-3, warmup_steps=1, total_steps=100, steps=30,
+                     batch=2, seq=16, seed=1, drop=0.5)
+TRAIN_LAUNCH_ARGS = ("--arch", "stablelm-1.6b", "--reduced", "--steps",
+                     "12", "--batch", "2", "--seq", "16", "--ckpt-every",
+                     "4", "--log-every", "100")
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
+def train_split(prof) -> tuple:
+    """(device µs by category, busy µs) of a traced window.  Each
+    kernel's time goes to the op that launched it: gemm (the weight
+    products, `aten::mm` / `aten::addmm`), attention (the plain
+    attention's batched einsums, softmax and mask), optimizer (anything
+    under the train step's "optimizer" range), other; kernels the trace
+    links to no op are `unlinked`.  The range's own device-side record
+    (a `gpu_user_annotation` spanning its kernels) is not a kernel and is
+    left out.  Busy: the union of the kernels' intervals."""
+    attention = ("aten::bmm", "aten::_softmax",
+                 "aten::_softmax_backward_data", "aten::where")
+    out = dict.fromkeys(("gemm", "attention", "optimizer", "other",
+                         "unlinked"), 0.0)
+    spans = []
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.name == "optimizer" or getattr(ev, "is_user_annotation",
+                                                 False):
+                continue
+            spans.append((ev.time_range.start, ev.time_range.end))
+            out["unlinked"] += ev.time_range.end - ev.time_range.start
+            continue
+        kernels = getattr(ev, "kernels", None)
+        if not kernels:
+            continue
+        us = sum(k.duration for k in kernels)
+        out["unlinked"] -= us
+        up, parents = ev, set()
+        while up is not None:
+            parents.add(up.name)
+            up = up.cpu_parent
+        if "optimizer" in parents:
+            out["optimizer"] += us
+        elif ev.name in ("aten::mm", "aten::addmm"):
+            out["gemm"] += us
+        elif ev.name in attention:
+            out["attention"] += us
+        else:
+            out["other"] += us
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return out, busy
+
+
+def run_train(args, dev, K):
+    """Train StableLM-1.6B at its published size through the port's
+    train step (plain attention, AdamW), check the card against the CPU
+    at two layers, then the reduced config's descent and the launcher's
+    crash/restart.  Returns the phase's attention-kernel launches (which
+    must stay 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import optimizer_for
+    from repro_torch.models import registry
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        loss_and_grads, make_train_step)
+    from repro_torch.tree import leaves, tree_map
+
+    before = K.launch_counts()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    batch, seq = args.train_batch, args.train_seq
+    if args.cpu_rehearsal:
+        cfg = cfg.reduced()
+    api = registry.get_model(cfg)
+    opt = dataclasses.replace(optimizer_for(cfg), lr=3e-4, warmup_steps=2)
+    tc = TrainConfig(optimizer=opt, remat="none", accum_steps=1)
+
+    # -- (a) full size: 10 steps, the profiler over steps 6-8 -------------
+    t0 = time.perf_counter()
+    params, opt_state = init_train_state(
+        api, tc, torch.Generator(device=dev).manual_seed(TRAIN_SEED), dev)
+    sync(dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in leaves((params, opt_state)))
+    log(f"train model {cfg.name}: layers={cfg.n_layers} d={cfg.d_model} "
+        f"heads={cfg.n_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} {cfg.dtype} "
+        f"params={n_params} (param_count(), norms left out: "
+        f"{cfg.param_count():.0f}) "
+        f"optimizer={opt.name} state={state_bytes / 2 ** 30:.2f} GiB "
+        f"batch={batch}x{seq} remat={tc.remat} init_s="
+        f"{time.perf_counter() - t0:.2f}")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=0), device=dev)
+    step = make_train_step(api, tc)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rows, snapshot, window = [], None, None
+    for i in range(TRAIN_STEPS):
+        b = data.batch_at(i)
+        if i == TRAIN_REPEAT:           # the state before the last step
+            # the training peak, before the snapshot adds its 16 GiB
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+                if dev.type == "cuda" else None
+            snapshot = tree_map(torch.clone, (params, opt_state))
+        if dev.type == "cuda" and i == TRAIN_TRACE[0]:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.start()
+            tw = time.perf_counter()
+        sync(dev)
+        ts = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        loss, gnorm, lr = (float(m[k]) for k in ("loss", "grad_norm", "lr"))
+        sync(dev)
+        ms = 1e3 * (time.perf_counter() - ts)
+        if dev.type == "cuda" and i == TRAIN_TRACE[1]:
+            window = (1e3 * (time.perf_counter() - tw), prof)
+            prof.stop()
+        rows.append((loss, gnorm, lr, ms))
+        log(f"train step {i}: loss={loss:.6f} grad_norm={gnorm:.6f} "
+            f"lr={lr:.4e} ms={ms:.2f}")
+    check(all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in rows),
+          "train: a loss or grad_norm is not finite")
+    untraced = [r[3] for i, r in enumerate(rows)
+                if not TRAIN_TRACE[0] <= i <= TRAIN_TRACE[1]]
+    med = float(np.median(untraced))
+    tokens = batch * seq
+    flops = 6 * n_params * tokens + \
+        12 * cfg.n_layers * batch * seq * seq * cfg.d_model
+    tflops = flops / (med / 1e3) / 1e12
+    log(f"train full: median_step_ms={med:.2f} (steps outside the "
+        f"profiler window, first included) tokens_per_s="
+        f"{tokens / (med / 1e3):.1f} model_tflops={tflops:.1f} "
+        f"(6·N·tokens + 12·L·B·S²·d = {flops:.4e} a step; "
+        f"{tflops / TRAIN_PEAK_TFLOPS:.3f} of {TRAIN_PEAK_TFLOPS:.0f}) "
+        + (f"peak_gib={peak:.2f} (steps 0-{TRAIN_REPEAT - 1})"
+           if peak is not None
+           else "peak_gib=not measured"))
+    if window is None:
+        log("train trace: not measured (no card)")
     else:
-        yield tree
+        wall_ms, prof = window
+        n = TRAIN_TRACE[1] - TRAIN_TRACE[0] + 1
+        split, busy = train_split(prof)
+        device = sum(split.values())
+        log(f"train trace steps {TRAIN_TRACE[0]}-{TRAIN_TRACE[1]}: "
+            f"wall_ms={wall_ms / n:.3f} device_ms={device / 1e3 / n:.3f} "
+            + " ".join(f"{k}_ms={v / 1e3 / n:.3f}" for k, v in split.items())
+            + f" busy_ms={busy / 1e3 / n:.3f} busy_share="
+            f"{busy / 1e3 / wall_ms:.3f}")
+        check(device > 0, "train trace: no device time")
+        del prof, window
+
+    # the last step again from its saved state
+    with torch.no_grad():
+        for live, saved in zip(leaves((params, opt_state)),
+                               leaves(snapshot)):
+            live.copy_(saved)
+    opt_state = opt_state._replace(step=snapshot[1].step)
+    del snapshot
+    _, _, m = step(params, opt_state, data.batch_at(TRAIN_REPEAT))
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    want = rows[TRAIN_REPEAT]
+    log(f"train repeat step {TRAIN_REPEAT}: loss={loss:.9g} vs "
+        f"{want[0]:.9g} bit_for_bit={loss == want[0]} grad_norm="
+        f"{gnorm:.9g} vs {want[1]:.9g} bit_for_bit={gnorm == want[1]}")
+    check(abs(loss - want[0]) <= 1e-6 * abs(want[0]),
+          f"train repeat: loss {loss} vs {want[0]} beyond rel 1e-6")
+    del params, opt_state, m, data, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"train (a) full size s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+
+    # -- (b) the card against the CPU: two layers, float32, TF32 off ------
+    n_layers, cb, cs = TRAIN_CMP
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    api2 = registry.get_model(cfg2)
+    cpu = torch.device("cpu")
+    # drawn once on the card (the CPU's single-threaded generator takes
+    # about 8 s for these 514 M normals), then copied to the CPU
+    p_dev, _ = init_train_state(api2, tc, torch.Generator(
+        device=dev).manual_seed(TRAIN_SEED), dev)
+    p_cpu = tree_map(lambda t: t.to(cpu, copy=True), p_dev)
+    pipe = DataConfig(vocab=cfg2.vocab, seq_len=cs, global_batch=cb, seed=2)
+    b_cpu = SyntheticLM(pipe, device=cpu).batch_at(0)
+    b_dev = SyntheticLM(pipe, device=dev).batch_at(0)
+    check(all(torch.equal(b_cpu[k], b_dev[k].cpu()) for k in b_cpu),
+          "train: the card's batch is not the CPU's")
+    l_cpu, g_cpu = loss_and_grads(api2, "none")(p_cpu, b_cpu)
+    l_dev, g_dev = loss_and_grads(api2, "none")(p_dev, b_dev)
+    worst = max(float((gd.cpu() - gc).abs().max() / gc.abs().max())
+                for gd, gc in zip(leaves(g_dev), leaves(g_cpu)))
+    lrel = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+    log(f"train card vs cpu ({n_layers} layers, float32, TF32 off, "
+        f"{cb}x{cs}): loss {float(l_dev):.9g} vs {float(l_cpu):.9g} "
+        f"(rel {lrel:.3e}) grads max|g_card - g_cpu| / max|g_cpu| = "
+        f"{worst:.3e} (worst leaf)")
+    check(lrel <= 1e-5, f"train card vs cpu: loss rel {lrel:.3e} > 1e-5")
+    check(worst <= TRAIN_GRAD_TOL, f"train card vs cpu: a gradient leaf "
+          f"{worst:.3e} of its max from the CPU's")
+    init2, update2 = make_optimizer(OptimizerConfig(
+        lr=3e-4, warmup_steps=2))
+    new_cpu, _, _ = update2(g_cpu, init2(p_cpu), p_cpu)
+    new_dev, _, _ = update2(tree_map(lambda g: g.to(dev), g_cpu),
+                            init2(p_dev), p_dev)
+    # within rtol 1e-6, atol 1e-6 of the leaf's max |p|: a step that
+    # lands near 0 keeps its operands' absolute rounding
+    urel = max(float(((a.cpu() - b).abs() / (b.abs() + b.abs().max())).max())
+               for a, b in zip(leaves(new_dev), leaves(new_cpu)))
+    log(f"train adamw update from the CPU's grads: max |p_card - p_cpu| / "
+        f"(|p_cpu| + max|p_cpu|) = {urel:.3e} (worst leaf)")
+    check(urel <= 1e-6, f"train adamw update: {urel:.3e} > 1e-6")
+    del p_cpu, p_dev, g_cpu, g_dev, new_cpu, new_dev
+    log(f"train (b) card vs cpu s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+
+    # -- (c) the reduced config: descent and the launcher's restart -------
+    small = get_config(TRAIN_ARCH).reduced()
+    api3 = registry.get_model(small)
+    d = TRAIN_DESCENT
+    tc3 = TrainConfig(optimizer=OptimizerConfig(
+        lr=d["lr"], warmup_steps=d["warmup_steps"],
+        total_steps=d["total_steps"]), remat="none")
+    p3, o3 = init_train_state(api3, tc3, torch.Generator(
+        device=dev).manual_seed(0), dev)
+    fixed = registry.random_train_batch(small, d["batch"], d["seq"],
+                                        seed=d["seed"], device=dev)
+    step3 = make_train_step(api3, tc3)
+    losses = []
+    for _ in range(d["steps"]):
+        p3, o3, m = step3(p3, o3, fixed)
+        losses.append(float(m["loss"]))
+    log(f"train descent (reduced, lr {d['lr']}, {d['steps']} steps on one "
+        f"batch): first={losses[0]:.4f} last={losses[-1]:.4f}")
+    check(losses[-1] < losses[0] - d["drop"],
+          f"train descent: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for tag, fail in (("clean", -1), ("crash", 7)):
+            runs[tag] = launch_train.main(
+                [*TRAIN_LAUNCH_ARGS, "--ckpt-dir", os.path.join(tmp, tag),
+                 "--fail-at-step", str(fail), "--device", str(dev)])
+    clean, crashed = runs["clean"][-1], runs["crash"][-1]
+    log(f"train launcher: clean last step {clean[0]} loss {clean[1]:.6f}, "
+        f"crash at 7 then restored: last step {crashed[0]} loss "
+        f"{crashed[1]:.6f}")
+    check(clean[0] == crashed[0] and
+          abs(clean[1] - crashed[1]) <= 1e-5 * abs(clean[1]),
+          "train launcher: the restarted run ends elsewhere")
+    log(f"train (c) reduced s={time.perf_counter() - t0:.1f}")
+    after = K.launch_counts()
+    moved = {k: after[k] - before[k]
+             for k in ("flash_attention", "paged_attention")}
+    log(f"train attention kernel launches during the phase: {moved}")
+    check(not any(moved.values()), f"train: attention kernels launched "
+          f"{moved} on the training path")
+    return moved
 
 
 # ---------------------------------------------------------------------------
@@ -3516,6 +3802,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep-shift", type=int, default=0,
                     help="cut the sweep grids' log2n by this much (the "
                          "digests are pinned at 0)")
+    ap.add_argument("--train-batch", type=int, default=8,
+                    help="sequences a step of the train phase")
+    ap.add_argument("--train-seq", type=int, default=512,
+                    help="tokens a sequence of the train phase")
     ap.add_argument("--reps", type=int, default=50,
                     help="kernel launches per timing")
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -3609,6 +3899,16 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
+    # -- train: StableLM-1.6B through the port's train step -----------------
+    t0 = time.perf_counter()
+    train_counts = run_train(args, dev, K)
+    log(f"train phase_s={time.perf_counter() - t0:.1f}")
+    if dev.type == "cuda":
+        log(f"train peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
     # -- main path ------------------------------------------------------------
     n = 1 << args.log2n
     t0 = time.perf_counter()
@@ -3669,7 +3969,7 @@ def main(argv=None) -> int:
         f"{dplain.n_iters}")
     compare_pagerank("dia", dres, dplain)
     phase_counts = {"attention": attn_counts, "lm": lm_counts,
-                    "main": counts, "dia": dia_counts}
+                    "train": train_counts, "main": counts, "dia": dia_counts}
 
     # -- the reordering, per-call and BELL paths ------------------------------
     plans = {}

@@ -20,6 +20,10 @@ NVIDIA H100, beside the JAX reference package `repro`.
     serve_graph  the analytics serving engine: admission over the plan
               cache, a lane-pool scheduler, coalesced SpMMs on the card
               and the mutation lifecycle of streaming graphs
+    optim, data, train  the LM trainer: AdamW / Adafactor, the data
+              pipeline and the train step (autograd over the plain
+              attention), driven by `launch.train` with the restart
+              supervisor of `distributed.fault`
 
 Entry points run on the card unless the caller passes device="cpu".
 """

@@ -1,10 +1,11 @@
-"""The reference's checkpoint layout for string-keyed dict trees of
-numpy arrays (counterpart of the part of `repro.checkpoint` that the
-shipped cost model needs), with its own MessagePack codec.
+"""The reference's checkpoint layout for trees of numpy arrays and
+tensors (counterpart of `repro.checkpoint`), with its own MessagePack
+codec.
 
-  manager        CheckpointManager: committed-step save and schema-free
-                 `restore_any`; writes zlib shards, reads zlib and,
-                 where `zstandard` imports, zstd
+  manager        CheckpointManager: committed-step save (blocking or in
+                 the background), `restore(step, target)` by key and the
+                 schema-free `restore_any` of dict trees; writes zlib
+                 shards, reads zlib and, where `zstandard` imports, zstd
   msgpack_codec  packb / unpackb for the manifests and record leaves
 """
 from .manager import CODEC, CheckpointManager, shard_filename

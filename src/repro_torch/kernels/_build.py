@@ -137,6 +137,18 @@ def on_cuda(*tensors) -> bool:
     return dev.type == "cuda"
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """The attention kernels have no backward: refuse a call whose
+    result autograd would differentiate, on every device (the plain
+    version would give a gradient on the CPU that the card cannot)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward pass, so autograd cannot "
+            "differentiate through it; train with use_kernels=False (the "
+            "plain attention), or call it under torch.no_grad()")
+
+
 def require(t, dtype, name: str, ndim: int) -> None:
     """Validate what a kernel is given before its pointer is passed."""
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():

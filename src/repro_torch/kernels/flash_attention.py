@@ -109,8 +109,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d in (64, 128), contiguous and 16-byte aligned, else ValueError):
     bfloat16 runs one CUDA kernel, float32 three (K and V split into tf32
     hi and lo, then the 3xTF32 kernel, in a workspace of 4 bh·skv·d
-    floats).  CPU tensors run the plain version."""
+    floats).  CPU tensors run the plain version.  Neither has a
+    backward: with grad mode on, an input that requires grad raises
+    RuntimeError (`_build.refuse_autograd`)."""
     _check(q, k, v)
+    _build.refuse_autograd("flash_attention", q, k, v)
     bh, sq, d = q.shape
     skv = k.shape[1]
     fq, fk = _block_grid(sq, skv, bq, bk)

@@ -121,8 +121,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     split walk over `split_plan`'s spans, which writes each span's
     partial softmax to a workspace of B·H·n_split·(hd + 2) + B·KVH·n_split
     4-byte words, and the merge of the spans in split order.  CPU tensors
-    run the plain version."""
+    run the plain version.  Neither has a backward: with grad mode on, an
+    input that requires grad raises RuntimeError
+    (`_build.refuse_autograd`)."""
     _check(q, k_pool, v_pool, tables, lengths)
+    _build.refuse_autograd("paged_attention", q, k_pool, v_pool)
     if not _build.on_cuda(q, k_pool, v_pool, tables, lengths):
         return paged_attention_plain(q, k_pool, v_pool, tables, lengths)
     bsz, h, hd = q.shape

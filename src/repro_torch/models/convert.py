@@ -1,30 +1,44 @@
-"""Carry the reference's parameters into the port.
+"""Carry parameters and optimizer states between the reference's layout
+and the port's.
 
 The reference's parameter tree (`repro.models.transformer.init_params`)
 holds `embed`, `final_norm`, `head` (unless tied), a `prefix` list of
 blocks and `stacks`: per period position a block whose every leaf has a
-leading n_super dim.  Given that tree with numpy leaves (for example
-`jax.tree.map(np.asarray, params)`), `params_from_reference` returns the
-port's: the same leaves, bytes unchanged, with layer `prefix_len +
-u·period + pos` taken from `stacks[pos][...][u]`.  Weights stay (d_in,
-d_out).  bfloat16 leaves (numpy's `ml_dtypes` type, which
-`torch.from_numpy` refuses) cross as their raw 16-bit words.
+leading n_super dim.  The port's model runs a plain `layers` list, layer
+`prefix_len + u·period + pos` being `stacks[pos][...][u]`.  Weights stay
+(d_in, d_out) in both.
+
+  params_from_reference  the reference's tree (numpy, jax or torch
+                         leaves) -> the port's; a stacked leaf becomes one
+                         tensor whose `unbind(0)` views are the layers'
+                         leaves, bytes unchanged, so autograd through the
+                         views sums into the stacked tensor
+  params_to_reference    the port's tree -> the reference's layout, as
+                         tensors on the parameters' device (layers
+                         stacked, `head` a row-major (d, V) copy)
+  opt_state_from_reference  the reference's AdamWState / AdafactorState ->
+                         the port's, leaves as tensors on a device, the
+                         step an int32 host tensor
+
+The trainer (`train.loop`) holds its parameters and optimizer state in
+the reference's layout: the reference's optimizers decide weight decay
+and Adafactor's factoring by a leaf's dims and clip Adafactor's update
+by a leaf's RMS, so a stacked leaf is one leaf to them.  Its checkpoints
+therefore have the reference's keys and bytes.  bfloat16 numpy leaves
+(`ml_dtypes`, which `torch.from_numpy` refuses) cross as their raw
+16-bit words.
 """
 from __future__ import annotations
 
 from typing import Any
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.optim import AdafactorState, AdamWState
+from repro_torch.tree import tree_map
 from .transformer import require_supported, split_layout
-
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
 
 
 def params_from_reference(ref: Any, cfg: ModelConfig, device=None) -> dict:
@@ -35,11 +49,48 @@ def params_from_reference(ref: Any, cfg: ModelConfig, device=None) -> dict:
     def leaf(a):
         return to_tensor(a, dev)
 
-    out = {name: _map(ref[name], leaf)
+    def unstack(tree):
+        """A stacked block -> n_super blocks of views (one unbind a leaf)."""
+        if isinstance(tree, dict):
+            parts = {k: unstack(v) for k, v in tree.items()}
+            return [{k: parts[k][u] for k in tree} for u in range(n_super)]
+        return leaf(tree).unbind(0)
+
+    out = {name: tree_map(leaf, ref[name])
            for name in ("embed", "final_norm", "head") if name in ref}
-    layers = [_map(ref["prefix"][i], leaf) for i in range(prefix_len)]
+    layers = [tree_map(leaf, ref["prefix"][i]) for i in range(prefix_len)]
+    stacks = [unstack(ref["stacks"][pos]) for pos in range(period)] \
+        if n_super else []
     for u in range(n_super):
         for pos in range(period):
-            layers.append(_map(ref["stacks"][pos], lambda a: leaf(a[u])))
+            layers.append(stacks[pos][u])
     out["layers"] = layers
     return out
+
+
+def params_to_reference(params: dict, cfg: ModelConfig) -> dict:
+    require_supported(cfg)
+    prefix_len, period, n_super = split_layout(cfg)
+    layers = params["layers"]
+    out = {"embed": params["embed"],
+           "final_norm": dict(params["final_norm"])}
+    if "head" in params:
+        out["head"] = params["head"].contiguous()
+    out["prefix"] = [layers[i] for i in range(prefix_len)]
+    out["stacks"] = [
+        tree_map(lambda *xs: torch.stack(xs),
+                 *[layers[prefix_len + u * period + pos]
+                   for u in range(n_super)]) if n_super else None
+        for pos in range(period)]
+    return out
+
+
+def opt_state_from_reference(ref_state: Any, device=None):
+    """The reference's optimizer state (a NamedTuple with numpy or jax
+    leaves) -> the port's class of the same name over tensors."""
+    dev = resolve_device(device)
+    cls = {"AdamWState": AdamWState,
+           "AdafactorState": AdafactorState}[type(ref_state).__name__]
+    step = torch.tensor(int(ref_state.step), dtype=torch.int32)
+    return cls(step, *(tree_map(lambda a: to_tensor(a, dev), t)
+                       for t in ref_state[1:]))

@@ -2,12 +2,14 @@
 
     api = get_model(cfg)
     params = api.init(generator, device)
-    loss   = api.loss_fn(params, batch)            # forward only
+    loss   = api.loss_fn(params, batch, remat="none", use_kernels=False)
     logits, cache = api.prefill(params, batch, max_len)
     logits, cache = api.decode_step(params, cache, tokens)
 
 Each function takes `use_kernels=` (default True: flash attention for
-prompts, paged attention for decode steps).  The reference's
+prompts, paged attention for decode steps).  The kernels have no
+backward, so training differentiates `loss_fn` with `use_kernels=False`
+(`train.loop` does).  The reference's
 `input_specs` family serves its multi-pod dry-run and waits for the
 port's `launch/dryrun` (ROADMAP A11, slice 3).
 """

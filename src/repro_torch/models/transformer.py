@@ -12,14 +12,22 @@ per-slot positions let serving slots sit at different depths.  A forward
 writes the cache's K and V in place and returns a new dict around them
 with pos advanced.
 
+Training differentiates `loss_fn` with autograd; `remat` recomputes
+each layer's activations in the backward pass (`torch.utils.checkpoint`
+per layer; the reference checkpoints each scanned super-block, the same
+layers here: every ported config has period 1 and no prefix).
+
 Mamba, RWKV and MoE blocks and the encoder-decoder wait for ROADMAP A11,
 slice 3: their configs raise NotImplementedError.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -104,6 +112,36 @@ def init_block_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
+# Activation recomputation
+# ---------------------------------------------------------------------------
+
+REMAT = ("none", "dots", "full")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """`checkpoint_dots_with_no_batch_dims`: keep the 2-D matrix
+    products (the weight GEMMs), recompute the rest -- the attention
+    einsums, which are batched, included."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kwargs(remat: str) -> Optional[dict]:
+    """`torch.utils.checkpoint.checkpoint` arguments of a remat mode, or
+    None for "none"."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}: one of {REMAT}")
+    if remat == "none":
+        return None
+    kw: dict = {"use_reentrant": False}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return kw
+
+
+# ---------------------------------------------------------------------------
 # Full model
 # ---------------------------------------------------------------------------
 
@@ -163,12 +201,14 @@ def merge_cache(cache: Params, sub: Params, slot) -> Params:
 
 
 def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
-            cache: Optional[Params] = None, use_kernels: bool = True
+            cache: Optional[Params] = None, remat: str = "full",
+            use_kernels: bool = True
             ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """-> (hidden (B,S,d), new_cache, aux_loss).
 
     Training: cache None.  Prefill: a zero-pos cache.  Decode: S == 1.
-    aux_loss is 0 (no MoE block is ported)."""
+    aux_loss is 0 (no MoE block is ported).  `remat` ("none", "dots",
+    "full") applies to a forward without a cache that autograd records."""
     require_supported(cfg)
     if embeds is None:
         embeds = params["embed"][tokens.long()]
@@ -187,8 +227,19 @@ def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
             if cache["layers"] else 0
         index = cache_index(cache_pos, s_max, s, use_kernels)
 
+    remat_kw = _remat_kwargs(remat)
+    if cache is not None or not torch.is_grad_enabled():
+        remat_kw = None
+
+    def train_block(p, x):
+        return apply_block(p, cfg, x, positions, None, None, rope=rope,
+                           use_kernels=use_kernels)[0]
+
     new_layers = []
     for i, p in enumerate(params["layers"]):
+        if remat_kw is not None:
+            x = checkpoint(train_block, p, x, **remat_kw)
+            continue
         blk_cache = cache["layers"][i] if cache is not None else None
         x, nc = apply_block(p, cfg, x, positions, blk_cache, cache_pos,
                             index=index, rope=rope, use_kernels=use_kernels)
@@ -210,10 +261,14 @@ def head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
-            use_kernels: bool = True) -> torch.Tensor:
-    """Forward only: the training slice adds the backward pass."""
+            remat: str = "full", use_kernels: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy, differentiable by autograd with
+    `use_kernels=False` (the plain attention, which the reference's
+    training path runs).  The attention kernels have no backward: with
+    `use_kernels=True` a loss whose parameters require grad raises."""
     x, _, aux = forward(params, cfg, tokens=batch.get("tokens"),
-                        embeds=batch.get("embeds"), use_kernels=use_kernels)
+                        embeds=batch.get("embeds"), remat=remat,
+                        use_kernels=use_kernels)
     return lm_loss(head_matrix(params, cfg), x, batch["labels"]) + aux
 
 
@@ -226,7 +281,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     src = tokens if tokens is not None else embeds
     cache = init_cache(cfg, src.shape[0], max_len, device=src.device)
     x, new_cache, _ = forward(params, cfg, tokens=tokens, embeds=embeds,
-                              cache=cache, use_kernels=use_kernels)
+                              cache=cache, remat="none",
+                              use_kernels=use_kernels)
     logits = x[:, -1:, :] @ head_matrix(params, cfg)
     return logits, new_cache
 
@@ -236,6 +292,6 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                 ) -> Tuple[torch.Tensor, Params]:
     """tokens: (B, 1) -> (logits (B,1,V), new_cache)."""
     x, new_cache, _ = forward(params, cfg, tokens=tokens, cache=cache,
-                              use_kernels=use_kernels)
+                              remat="none", use_kernels=use_kernels)
     logits = x @ head_matrix(params, cfg)
     return logits, new_cache

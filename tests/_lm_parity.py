@@ -1,4 +1,5 @@
-"""Shared inputs of the LM parity tests (`tests/test_torch_lm*.py`):
+"""Shared inputs of the LM parity tests (`tests/test_torch_lm*.py`,
+`tests/test_torch_train.py`):
 the same parameters and inputs for the reference and the port.
 
 Both packages get the reference's seeded parameter tree, its zero biases
@@ -16,7 +17,9 @@ import torch
 from repro.configs import CONFIGS as R_CONFIGS
 from repro.models import registry as rreg
 from repro_torch.configs import CONFIGS
+from repro_torch.device import to_tensor
 from repro_torch.models import common as tcommon, convert
+from repro_torch.tree import tree_map
 
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
        "bfloat16": dict(rtol=0.08, atol=0.08)}
@@ -73,3 +76,25 @@ def f32(a):
     if isinstance(a, torch.Tensor):
         return a.float().numpy()
     return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def shared_train_params(rc, seed=1):
+    """The trainer's state in both packages: (reference params as jnp,
+    the same tree -- the reference's stacked layout -- as port tensors on
+    the CPU, copied so in-place updates touch no reference buffer)."""
+    ref = rreg.get_model(rc).init(jax.random.PRNGKey(seed))
+    leaves = _perturb(jax.tree.map(np.asarray, ref),
+                      np.random.default_rng(seed))
+    port = tree_map(lambda a: to_tensor(a, "cpu").clone(), leaves)
+    return jax.tree.map(jnp.asarray, leaves), port
+
+
+def train_batch(vocab, batch, seq, seed):
+    """One (reference, port) batch of tokens and next-token labels."""
+    toks = np.random.default_rng(seed).integers(
+        0, vocab, (batch, seq + 1)).astype(np.int32)
+    ref = {"tokens": jnp.asarray(toks[:, :-1]),
+           "labels": jnp.asarray(toks[:, 1:])}
+    port = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+            "labels": torch.from_numpy(toks[:, 1:].copy())}
+    return ref, port

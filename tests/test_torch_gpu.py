@@ -1081,3 +1081,135 @@ def test_lm_engine_idle_slot_past_max_context(cuda):
     assert out[True] == out[False]
     assert {r: len(v) for r, v in out[True].items()} == \
         {i: m for i, (_, m) in enumerate(lengths)}
+
+
+# ---------------------------------------------------------------------------
+# the training path: autograd over the plain attention, AdamW, launcher
+# ---------------------------------------------------------------------------
+
+def _train_setup(device):
+    """Reduced stablelm in float32: parameters drawn on the CPU (so every
+    device starts from the same ones), moved to `device`, and a fresh
+    AdamW state there."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.models import registry
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.loop import TrainConfig, init_train_state
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(CONFIGS["stablelm-1.6b"].reduced(),
+                              dtype="float32")
+    api = registry.get_model(cfg)
+    tc = TrainConfig(optimizer=OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                               total_steps=100),
+                     remat="none")
+    params, _ = init_train_state(api, tc, torch.Generator().manual_seed(3),
+                                 "cpu")
+    params = tree_map(lambda t: t.to(device), params)
+    return cfg, api, tc, params, make_optimizer(tc.optimizer)[0](params)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """float32, TF32 off: three steps on the card and on the CPU from the
+    same state and batches; loss within rtol 1e-5, grad_norm 1e-4, the
+    gradients before each step within 1e-4 of each leaf's max |g|.
+    Params after the first step within rtol 1e-4 / atol 1e-6, after three
+    within rtol 1e-4 / atol 1e-5, outside the elements whose first update
+    (at the first step with a nonzero gradient there on either device)
+    the two devices' gradient difference can flip: |g_cpu| < max(100
+    |g_card - g_cpu|, 1e-6).  AdamW's first step there is +-lr by a sign that
+    float32 rounding (and the card's index backward, which adds in no
+    fixed order) decides.  The looser bar after three steps: AdamW scales
+    each element's step by its own gradient history, so an element whose
+    gradients are small carries their larger relative error into its
+    step (measured on the H100: 4.4e-6 at one of 65,452 elements)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.loop import loss_and_grads, make_train_step
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        cfg, api, tc, params, opt = _train_setup(dev)
+        pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                      global_batch=4, seed=5), device=dev)
+        step = make_train_step(api, tc)
+        grads, metrics, after = [], [], []
+        for i in range(3):
+            _, g = loss_and_grads(api, "none")(params, pipe.batch_at(i))
+            grads.append([t.cpu() for t in leaves(g)])
+            params, opt, m = step(params, opt, pipe.batch_at(i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            after.append([p.to("cpu", copy=True) for p in leaves(params)])
+        runs.append((grads, metrics, after))
+    (g_cpu, m_cpu, p_cpu), (g_dev, m_dev, p_dev) = runs
+    for (lc, nc), (ld, nd) in zip(m_cpu, m_dev):
+        np.testing.assert_allclose(ld, lc, rtol=1e-5)
+        np.testing.assert_allclose(nd, nc, rtol=1e-4)
+    noise = [torch.zeros_like(g, dtype=torch.bool) for g in g_cpu[0]]
+    seen = [torch.zeros_like(g, dtype=torch.bool) for g in g_cpu[0]]
+    masks = []
+    for gs_dev, gs_cpu in zip(g_dev, g_cpu):
+        for i, (gd, gc) in enumerate(zip(gs_dev, gs_cpu)):
+            diff = (gd - gc).abs()
+            assert diff.max() <= 1e-4 * gc.abs().max()
+            nonzero = (gc != 0) | (gd != 0)
+            flip = nonzero & (gc.abs() < torch.clamp(100 * diff, min=1e-6))
+            noise[i] = noise[i] | (flip & ~seen[i])
+            seen[i] = seen[i] | nonzero
+        masks.append(list(noise))
+    for after, mask, atol in ((0, masks[0], 1e-6), (-1, masks[-1], 1e-5)):
+        for pd, pc, skip in zip(p_dev[after], p_cpu[after], mask):
+            torch.testing.assert_close(pd[~skip], pc[~skip], rtol=1e-4,
+                                       atol=atol)
+
+
+def test_train_attention_kernels_refuse_grad_on_the_card(cuda):
+    """A gradient through the flash or paged kernel raises on CUDA
+    tensors (their outputs would carry no autograd history); without
+    grad the kernels launch as before."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import convert
+    from repro_torch.tree import tree_map
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(1, 2, 128, 64, generator=g, device=cuda)
+               for _ in range(3))
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(), k, v)
+    pool = torch.randn(4, 16, 2, 64, generator=g, device=cuda)
+    qd = torch.randn(2, 4, 64, generator=g, device=cuda)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([20, 32], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.paged_attention(qd.requires_grad_(), pool, pool, tables, lengths)
+    assert launch_counts()["flash_attention"] == 0
+    assert launch_counts()["paged_attention"] == 0
+    with torch.no_grad():
+        assert torch.isfinite(ops.flash_attention(q, k, v)).all()
+        assert torch.isfinite(
+            ops.paged_attention(qd, pool, pool, tables, lengths)).all()
+    assert launch_counts()["flash_attention"] == 1
+    assert launch_counts()["paged_attention"] == 1
+    cfg, api, _, params, _ = _train_setup(cuda)
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    toks = torch.zeros((2, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        api.loss_fn(convert.params_from_reference(live, cfg, cuda),
+                    {"tokens": toks, "labels": toks}, use_kernels=True)
+
+
+def test_train_launcher_crash_restart_on_the_card(cuda, tmp_path):
+    """The launcher on the card, clean and with a crash at step 7: the
+    same last step, final losses within rel 1e-5."""
+    from repro_torch.launch import train as launch_train
+
+    args = ["--arch", "stablelm-1.6b", "--reduced", "--steps", "12",
+            "--batch", "2", "--seq", "16", "--ckpt-every", "4",
+            "--log-every", "100", "--device", "cuda"]
+    clean = launch_train.main(args + ["--ckpt-dir", str(tmp_path / "a")])
+    crashed = launch_train.main(args + ["--ckpt-dir", str(tmp_path / "b"),
+                                        "--fail-at-step", "7"])
+    assert clean[-1][0] == crashed[-1][0] == 11
+    assert crashed[-1][1] == pytest.approx(clean[-1][1], rel=1e-5)

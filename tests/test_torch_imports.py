@@ -125,10 +125,35 @@ SLICE_MODULES = {
         "prefill", "decode_step"),
     "repro_torch.models.registry": ("ModelAPI", "get_model",
                                     "random_train_batch"),
-    "repro_torch.models.convert": ("params_from_reference",),
+    "repro_torch.models.convert": ("params_from_reference",
+                                   "params_to_reference",
+                                   "opt_state_from_reference"),
     "repro_torch.serve.scheduler": ("Request", "Slot", "Scheduler"),
     "repro_torch.serve.engine": ("EngineConfig", "Engine", "make_engine"),
     "repro_torch.launch.serve": ("synthetic_requests", "main"),
+    # the training slice: optimizers, data, fault supervisor, train step,
+    # launcher, and the trees they walk
+    "repro_torch.tree": ("leaves_with_path", "leaves", "unflatten",
+                         "tree_map", "map_with_path", "structure"),
+    "repro_torch.optim.adamw": (
+        "OptimizerConfig", "AdamWState", "AdafactorState", "cosine_lr",
+        "global_norm", "clip_by_global_norm", "adamw_init", "adamw_update",
+        "adafactor_init", "adafactor_update", "make_optimizer",
+        "optimizer_bytes_per_param"),
+    "repro_torch.optim.grad_compress": (
+        "CompressionState", "compress_init", "quantize_int8",
+        "dequantize_int8", "compress_grads", "decompress_grads",
+        "crosspod_allreduce_compressed"),
+    "repro_torch.data.pipeline": ("DataConfig", "SyntheticLM",
+                                  "PackedFileDataset", "write_token_file",
+                                  "make_pipeline"),
+    "repro_torch.distributed.fault": ("WorkerState", "HeartbeatMonitor",
+                                      "StragglerDetector", "RescalePlan",
+                                      "plan_elastic_rescale", "Supervisor"),
+    "repro_torch.train.loop": ("TrainConfig", "make_train_step",
+                               "init_train_state", "loss_and_grads"),
+    "repro_torch.launch.steps": ("ADAFACTOR_THRESHOLD", "optimizer_for"),
+    "repro_torch.launch.train": ("build", "main"),
 }
 
 #: names each package exports, as the reference's `__init__` does
@@ -145,6 +170,14 @@ PACKAGE_EXPORTS = {
     "repro_torch.serve": ("Engine", "EngineConfig", "make_engine",
                           "Request", "Scheduler"),
     "repro_torch.models": ("ModelAPI", "get_model"),
+    "repro_torch.optim": ("grad_compress", "AdamWState", "AdafactorState",
+                          "OptimizerConfig", "adamw_init", "adamw_update",
+                          "adafactor_init", "adafactor_update", "cosine_lr",
+                          "make_optimizer", "optimizer_bytes_per_param"),
+    "repro_torch.data": ("DataConfig", "SyntheticLM", "PackedFileDataset",
+                         "make_pipeline", "write_token_file"),
+    "repro_torch.train": ("TrainConfig", "make_train_step",
+                          "init_train_state"),
 }
 
 
