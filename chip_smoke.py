@@ -69,6 +69,30 @@ kernels/csrc/` and then runs these phases, one output line per step:
            bfloat16 ulp, timed beside its bound and the library call
            (SDPA causal; SDPA with a length mask over the dense cache):
            the JSON line's flash and paged entries are these;
+  lm_hybrid Jamba-v0.1 (configs/jamba_v01_52b.py) at full width with
+           one period of its 32 layers (8: Mamba x4, attention, Mamba
+           x3; a 16-expert top-2 MoE in the odd layers; d 4096, 32/8
+           heads of 128, d_state 16, vocab 65,536, bfloat16, seeded
+           weights on the card, 26.5 GB) and RWKV6-3B uncut
+           (configs/rwkv6_3b.py: 32 layers, d 2560, 40 heads of 64),
+           each served by `serve.Engine` like Granite above (16 seeded
+           requests, prompts 16-600, budgets 8-48; counts set to 0 just
+           before and read just after).  Jamba: one flash launch a
+           prefill and one paged launch a decode step, the MoE's slot
+           choices dropped a step (capacity 1 at 8 slots), three decode
+           steps replayed from one cache twice (logits and every cache
+           leaf bit for bit), a torch.profiler window of five decode
+           steps alone (device split, busy share; no scatter_add /
+           index_add kernel), the expert GEMMs of a step against their
+           22.5 GB at 3.35 TB/s; then the same family at 5 layers in
+           float32 (TF32 off; layer 4 is its first attention layer),
+           kernel path against plain path teacher-forced, within
+           rtol = atol = 1e-3 on every row whose routing agreed call by
+           call (at most 1 % may not).  RWKV: no kernel launches, its
+           decode window; then 2 layers of full width in float32 on the
+           card against the CPU for a 512-token prompt (the chunked wkv)
+           and a 100-token one (the per-token recurrence), each with 8
+           decode steps, logits within rtol = atol = 1e-3;
   train    StableLM-1.6B (configs/stablelm_1_6b.py, the reference
            launcher's default: 24 layers, d 2048, 32 heads, vocab
            100,352, bfloat16) trained at its published size through the
@@ -100,7 +124,9 @@ kernels/csrc/` and then runs these phases, one output line per step:
            each of the four graph drivers through the kernels, with every
            launch count set to 0 just before and read just after; then
            the same runs on the plain PyTorch path (use_pallas=False) on
-           the card: same iteration counts, BFS/SSSP/CC values equal,
+           the card, over the kernel plans' containers (`plain_twins`:
+           no second conversion): same iteration counts, BFS/SSSP/CC
+           values equal,
            PageRank within rtol 1e-3 (values near 2^-22); then
            `execute_many` on real-valued X (±inf in the ⊕-only
            semirings) at k = 4, 16 and 64 over the FD ELL plans
@@ -126,7 +152,8 @@ kernels/csrc/` and then runs these phases, one output line per step:
            model of its features, and the decision and scores equal the
            reference's on the same matrix (`REFERENCE_DECISIONS`, from
            `tools/reference_decisions.py`, as float.hex).
-           `predictor="oracle"` on the band (analytic: RCM and DIA) and
+           `predictor="oracle"` on the band (analytic: RCM and DIA;
+           its RCM is the default compile's, `SharedRcm`) and
            on R-MAT 2^11 (replay) through a fresh `PlanCache`, whose
            predictor / oracle compiles must be 1 / 1.  Each plan runs
            through its kernels, launch counts set to 0 just before and
@@ -143,7 +170,8 @@ kernels/csrc/` and then runs these phases, one output line per step:
            `plan.compile(scrambled, reorder=r)` is DIA and equals the
            per-call result bit for bit;
   rmat_rcm R-MAT 2^22 PageRank with `reorder=r`, r = rcm of its operand
-           computed once, kernels against the plain path;
+           (the compile phase's RCM of the adjacency, whose symmetrised
+           pattern the operand shares), kernels against the plain path;
   bell     a blocked graph at 2^21 (dense 8x128 tiles, 12 per 1024
            rows): `auto_format` gives BELL and the per-call `spmv`
            through the BELL kernel equals its plain path (bit for bit on
@@ -312,14 +340,14 @@ PR_L1 = 2 * (PR_DAMPING * PR_TOL + 16 * float(np.finfo(np.float32).eps)) \
 REAL_RTOL, REAL_ATOL = 1e-5, 1e-6   # real-valued plus-times, kernel/plain
 BF16_TC_OPS_PER_S = 989e12          # H100 SXM tensor cores, dense bf16
 TF32_TC_OPS_PER_S = 495e12          # H100 SXM tensor cores, dense TF32
-TPU_KERNELS = {
-    "spmv_dia": "src/repro/kernels/spmv_dia.py:48",
-    "spmv_ell": "src/repro/kernels/spmv_ell.py:46",
-    "spmv_csr": "src/repro/kernels/spmv_csr.py:62",
-    "spmv_csr_seg": "src/repro/kernels/spmv_csr_seg.py:67",
-    "spmv_bell": "src/repro/kernels/spmv_bell.py:50",
-    "flash_attention": "src/repro/kernels/flash_attention.py:88",
-    "paged_attention": "src/repro/kernels/paged_attention.py:86",
+TPU_KERNELS = {                     # each one's `pl.pallas_call` line
+    "spmv_dia": "src/repro/kernels/spmv_dia.py:71",
+    "spmv_ell": "src/repro/kernels/spmv_ell.py:60",
+    "spmv_csr": "src/repro/kernels/spmv_csr.py:78",
+    "spmv_csr_seg": "src/repro/kernels/spmv_csr_seg.py:86",
+    "spmv_bell": "src/repro/kernels/spmv_bell.py:63",
+    "flash_attention": "src/repro/kernels/flash_attention.py:104",
+    "paged_attention": "src/repro/kernels/paged_attention.py:102",
     # the batched kernels replace no pallas_call: the reference's
     # `execute_many` is its jnp kernel vmapped over X's rows
     "spmm_ell": "src/repro/plan/plan.py:170",
@@ -452,6 +480,29 @@ def drive(drivers, fam, adj, cache, dev, use_pallas):
         sync(dev)
         out[name] = (res, time.perf_counter() - t0)
     return out
+
+
+def plain_twins(cache) -> int:
+    """Install, for every kernel plan in `cache`, its use_pallas=False
+    twin under the key a plain driver call looks up: the same container,
+    reordering and CSR with no kernel layout -- what `plan.compile(...,
+    use_pallas=False)` builds from the same matrix -- so the main path's
+    plain runs do not convert their matrices again (about 28 s of host
+    time at 2^22).  The twins' compile_stats are empty: they compiled
+    nothing.  Returns the number installed."""
+    from repro_torch.plan import SpmvPlan
+
+    n = 0
+    for key, plan in list(cache._plans.items()):
+        if "use_pallas=True" not in key or type(plan) is not SpmvPlan:
+            continue
+        twin = key.replace("use_pallas=True", "use_pallas=False")
+        if not cache.contains(twin):
+            cache.get_or_build(twin, lambda p=plan: dataclasses.replace(
+                p, prep=None, use_pallas=False, compile_stats={},
+                _traces={}))
+            n += 1
+    return n
 
 
 def compile_seconds(plan) -> float:
@@ -797,14 +848,15 @@ def run_reorder(log2n, dev, K, core, compile_plan, reps, scrambled, gen_s,
     return {"plan": plan, "counts": counts}
 
 
-def run_rmat_rcm(adj, main_res, dev, K, T, drivers, cache):
-    """R-MAT PageRank with the RCM of its operand, kernels vs plain."""
-    t0 = time.perf_counter()
-    operand = drivers.pagerank_operand(adj)[0]
-    r = T.rcm(operand)
-    rcm_s = time.perf_counter() - t0
-    log(f"rmat_rcm 2^{adj.n_rows.bit_length() - 1}: operand+rcm_s="
-        f"{rcm_s:.2f} stats={r.stats}")
+def run_rmat_rcm(adj, main_res, dev, K, drivers, cache, rcm):
+    """R-MAT PageRank with the RCM of its operand, kernels vs plain.
+    `rcm` is (the RCM of the adjacency, its seconds) from the compile
+    phase: RCM reads the symmetrised pattern, which the PageRank operand
+    (the adjacency's transpose, normalised) shares, so it is the
+    operand's RCM too (equal permutations at 2^12-2^18 on the CPU)."""
+    r, rcm_s = rcm
+    log(f"rmat_rcm 2^{adj.n_rows.bit_length() - 1}: rcm_s={rcm_s:.2f} "
+        f"(the compile phase's, of the adjacency) stats={r.stats}")
     r0 = np.random.default_rng(7).uniform(0.5, 1.5, adj.n_rows) \
         .astype(np.float32)
     kw = dict(tol=PR_TOL, r0=r0, reorder=r, plan_cache=cache, device=dev)
@@ -823,6 +875,7 @@ def run_rmat_rcm(adj, main_res, dev, K, T, drivers, cache):
     for k in FORMAT_KERNELS[res.plan.format_name]:
         check(dev.type != "cuda" or counts[k] >= res.n_iters,
               f"rmat_rcm path launched {k} {counts[k]} times")
+    plain_twins(cache)
     plain = drivers.pagerank(adj, use_pallas=False, **kw)
     check(plain.n_iters == res.n_iters, f"rmat_rcm pagerank: iterations "
           f"{res.n_iters} vs {plain.n_iters}")
@@ -888,6 +941,7 @@ def run_bell(log2n, dev, K, CSR, core, drivers, cache, reps):
     log(f"bell per-call spmv_ms={call_ms:.4f} (blocks_per_row="
         f"{bell.blocks_per_row}, padded {bell.storage_bytes() / 2 ** 30:.3f}"
         f" GiB)")
+    plain_twins(cache)
     plain = drivers.pagerank(adj, tol=PR_TOL, plan_cache=cache,
                              use_pallas=False, device=dev)
     check(plain.n_iters == res.n_iters, f"bell pagerank: iterations "
@@ -1037,14 +1091,49 @@ def run_plan_checks(tag, P, K, plan, dev, gen):
     return counts
 
 
+class SharedRcm:
+    """While active, `reorder.STRATEGIES["rcm"]` computes a matrix's RCM
+    once and hands the same `Reordering` to every later compile of that
+    matrix: the band's default compile and its oracle compile score the
+    same 'rcm' candidate, which took 38-41 s a compile at 2^22.
+    `seconds[id(matrix)]` keeps the time of each first computation."""
+
+    def __enter__(self):
+        from repro_torch.reorder import STRATEGIES
+
+        self.strategies = STRATEGIES
+        self.rcm = STRATEGIES["rcm"]
+        self.memo: dict = {}
+        self.seconds: dict = {}
+
+        def shared(csr):
+            hit = self.memo.get(id(csr))
+            if hit is None or hit[0] is not csr:
+                t0 = time.perf_counter()
+                hit = (csr, self.rcm(csr))
+                self.seconds[id(csr)] = time.perf_counter() - t0
+                self.memo[id(csr)] = hit
+            return hit[1]
+
+        STRATEGIES["rcm"] = shared
+        return self
+
+    def __exit__(self, *exc):
+        self.strategies["rcm"] = self.rcm
+        self.memo.clear()
+
+
 def run_compile(args, dev, K, P, core, adjs, band, scrambled, rmat_matrix):
     """The compile phase: the reference's default `plan.compile` on the
     main path's FD and R-MAT and the reorder phase's scrambled band,
     `predictor="oracle"` on the band (analytic) and on R-MAT 2^11
     (replay), a fresh PlanCache's scoring counters, then `core.spmv`'s
     pagerank, power_iteration and dense branch through the kernels
-    against their plain paths.  Returns the launch counts and (the band
-    oracle plan's reordering -- the RCM of the band --, its seconds)."""
+    against their plain paths.  The band's RCM is computed once for its
+    two compiles (`SharedRcm`).  Returns the launch counts, (the band
+    oracle plan's reordering -- the RCM of the band --, the seconds of
+    that RCM plus the oracle compile's permutation) and (the RCM of the
+    R-MAT adjacency that its default compile scored, its seconds)."""
     from repro_torch.core import structure
     from repro_torch.plan.costmodel import default_model, features_for
 
@@ -1067,26 +1156,34 @@ def run_compile(args, dev, K, P, core, adjs, band, scrambled, rmat_matrix):
              ("band", scrambled, {}, pinned_band),
              ("band oracle", scrambled, {"predictor": "oracle"},
               pinned_band)]
-    for tag, m, kw, pinned in cases:
-        t0 = time.perf_counter()
-        with AnalyzeRecorder(structure) as rec:
-            plan = P.compile(m, device=dev, **kw)
-        sync(dev)
-        wall = time.perf_counter() - t0
-        log(f"compile {tag} 2^{m.n_rows.bit_length() - 1}: nnz={m.nnz} "
-            f"options={kw or 'defaults'} wall_s={wall:.2f}")
-        show_compile(tag, plan, rec.by_label(tag, plan), features_for,
-                     model)
-        del rec
-        if "predictor" not in kw:
-            check(plan.compile_stats["scoring"] == "model",
-                  f"compile {tag}: scored by "
-                  f"{plan.compile_stats['scoring']}, not the model")
-        check_decision(tag, plan, pinned)
-        add(run_plan_checks(tag, P, K, plan, dev, gen))
-        if tag == "band oracle":
-            band_rcm = (plan.reordering, plan.compile_stats["reorder_s"])
-        del plan
+    with SharedRcm() as shared:
+        for tag, m, kw, pinned in cases:
+            t0 = time.perf_counter()
+            with AnalyzeRecorder(structure) as rec:
+                plan = P.compile(m, device=dev, **kw)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            log(f"compile {tag} 2^{m.n_rows.bit_length() - 1}: nnz={m.nnz} "
+                f"options={kw or 'defaults'} wall_s={wall:.2f}")
+            show_compile(tag, plan, rec.by_label(tag, plan), features_for,
+                         model)
+            del rec
+            if "predictor" not in kw:
+                check(plan.compile_stats["scoring"] == "model",
+                      f"compile {tag}: scored by "
+                      f"{plan.compile_stats['scoring']}, not the model")
+            check_decision(tag, plan, pinned)
+            add(run_plan_checks(tag, P, K, plan, dev, gen))
+            if tag == "band oracle":
+                rcm_s = shared.seconds[id(scrambled)]
+                band_rcm = (plan.reordering,
+                            plan.compile_stats["reorder_s"] + rcm_s)
+                log(f"compile band oracle: the 'rcm' candidate is the "
+                    f"default compile's (one RCM for both, rcm_s="
+                    f"{rcm_s:.2f}); its reorder_s is the permutation alone")
+            del plan
+        rmat = adjs["rmat"]
+        rmat_rcm = (shared.memo[id(rmat)][1], shared.seconds[id(rmat)])
 
     # the replay oracle and the cache's split by scoring, on R-MAT 2^11
     small = rmat_matrix(1 << 11, device=dev)
@@ -1142,7 +1239,7 @@ def run_compile(args, dev, K, P, core, adjs, band, scrambled, rmat_matrix):
         f"plain lam={float(lam_p):.6f} ok={pi_ok}; dense 2^12 (integer "
         f"values) == to_dense() @ x == sparse {dense_ok}; kernels_s={kern_s:.2f} launches "
         f"{json.dumps({k: v for k, v in counts.items() if v})}")
-    return totals, band_rcm
+    return totals, band_rcm, rmat_rcm
 
 
 # ---------------------------------------------------------------------------
@@ -1917,6 +2014,436 @@ def lm_traced(entry, key, kern, lib, reps, dev, parts=()) -> None:
         + f"device_ms={fmt(dev_ms)} (kernel_ms {entry['ms']:.4f}) "
         f"library_device_ms={fmt(lt)} (library_ms "
         f"{fmt(entry['library_ms'])})")
+
+
+# ---------------------------------------------------------------------------
+# lm_hybrid: Jamba-v0.1 (Mamba + attention + MoE) and RWKV6-3B served
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "jamba-v0.1-52b"      # full width, one period of depth
+HYBRID_LAYERS = 8                   # mamba x4, attn, mamba x3; MoE on odd
+HYBRID_F32_LAYERS = 5               # layers 0-4: the first attention layer
+HYBRID_SEED = 25                    # weights and requests
+HYBRID_DISAGREE = 0.01              # forced rows whose routing may differ
+HYBRID_REPLAY = 3                   # tokens of the bit-identical replay
+HYBRID_WINDOW = 5                   # decode steps in the profiler window
+RWKV_ARCH = "rwkv6-3b"              # served uncut
+RWKV_CMP = (2, (512, 100), 8)       # card vs CPU: layers, prompts, steps
+ATOMIC_NAMES = ("scatter_add", "index_add", "atomic")
+
+
+class RouteLog:
+    """While active, keeps every `models.moe.route` call's `Routing`
+    (on the device; nothing is read back until the run ends)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe = moe
+        self.calls: list = []
+
+    def __enter__(self):
+        self.route = self.moe.route
+
+        def logged(probs, k, cap):
+            r = self.route(probs, k, cap)
+            self.calls.append(r)
+            return r
+
+        self.moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bit patterns, for bit-for-bit comparisons."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def served(tag, cfg, params, dev, K, Engine, EngineConfig, Request):
+    """Serve LM_REQUESTS seeded requests (LM_PROMPT, LM_NEW) on
+    LM_ENGINE: counts set to 0 just before the run and read just after.
+    Logs the run; returns (engine, launch counts, route log)."""
+    ecfg = EngineConfig(**LM_ENGINE, seed=HYBRID_SEED)
+    # one short request first loads the kernels and the GEMMs' plans
+    Engine(cfg, params, ecfg).run(lm_requests(Request, cfg.vocab, 1,
+                                              HYBRID_SEED + 3))
+    eng = Engine(cfg, params, ecfg)
+    reqs = lm_requests(Request, cfg.vocab, LM_REQUESTS, HYBRID_SEED)
+    budgets = {r.req_id: r.max_new_tokens for r in reqs}
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with RouteLog() as routes:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.run(reqs)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+    stats = eng.sched.stats()
+    n_tok = sum(len(v) for v in out.values())
+    peak = (f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+            if dev.type == "cuda" else "not measured")
+    log(f"{tag} launches {json.dumps(counts)}")
+    log(f"{tag} engine: requests={len(out)}/{len(reqs)} steps="
+        f"{stats['steps']} decode_steps={len(eng.decode_times)} prefills="
+        f"{len(eng.prefill_times)} tokens={n_tok} wall_s={wall:.3f} "
+        f"tokens_per_s={n_tok / wall:.1f} preemptions="
+        f"{stats['preemptions']} prompt_tokens="
+        f"{sum(len(r.prompt) for r in reqs)} prefill_s="
+        f"{sum(t for _, t in eng.prefill_times):.3f} decode_s="
+        f"{sum(eng.decode_times):.3f} peak_gib={peak}")
+    check({rid: len(v) for rid, v in out.items()} == budgets,
+          f"{tag}: not every request finished with its budget")
+    by_bucket: dict = {}
+    for bucket, s in eng.prefill_times:
+        by_bucket.setdefault(bucket, []).append(1e3 * s)
+    log(f"{tag} prefill ms by bucket: " + " ".join(
+        f"{b}:n={len(v)},median={np.median(v):.2f}"
+        for b, v in sorted(by_bucket.items())))
+    host = 1e3 * np.array(eng.decode_times)
+    log(f"{tag} decode host ms a step: median={np.median(host):.3f} "
+        f"p90={np.percentile(host, 90):.3f} min={host.min():.3f} "
+        f"steps={host.size}")
+    return eng, counts, routes
+
+
+def decode_window(tag, eng, dev, toks) -> dict:
+    """HYBRID_WINDOW decode steps of every slot from the engine's cache under
+    torch.profiler, nothing else in the window: device ms a step split
+    into flash, paged, GEMM and other, the busy share and the kernels;
+    fails on a float atomic (`scatter_add`, `index_add`) among them.
+    Returns the split a step ({} on the CPU)."""
+    if dev.type != "cuda":
+        log(f"{tag} trace: not measured (no card)")
+        return {}
+    from torch.profiler import ProfilerActivity, profile
+
+    n = HYBRID_WINDOW
+    eng.decode(toks)
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.decode(toks)
+        sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    recs = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0 and ev.count and \
+                ev.device_type == torch.autograd.DeviceType.CUDA:
+            recs[ev.key] = (ev.count, t)
+    split = {k: v / n for k, v in lm_split(recs).items()}
+    device = sum(split.values())
+    atomics = sorted({short_kernel(k) for k in recs
+                      if any(w in k.lower() for w in ATOMIC_NAMES)})
+    top = sorted(recs.items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"{tag} trace {n} decode steps alone: wall_ms={wall_ms / n:.3f} "
+        f"(profiler on) device_ms={device:.3f} "
+        + " ".join(f"{k}_ms={v:.3f}" for k, v in split.items())
+        + f" busy_share={device * n / wall_ms:.3f} kernels_a_step="
+        f"{sum(c for c, _ in recs.values()) / n:.0f} top: "
+        + "; ".join(f"{short_kernel(k)} {t / 1e3 / n:.3f} ms x{c / n:.0f}"
+                    for k, (c, t) in top))
+    check(bool(recs), f"{tag} trace: the profiler recorded no device time")
+    check(not atomics, f"{tag} trace: atomic kernels {atomics} on the "
+          "decode path")
+    log(f"{tag} trace: atomic kernels on the decode path: "
+        f"{atomics or 'none'}")
+    return split
+
+
+def run_lm_hybrid(args, dev, K):
+    """Serve Jamba-v0.1 at full width with one period of depth (8
+    layers: flash prefill and paged decode in its attention layer, the
+    Mamba scan in seven, a 16-expert top-2 MoE in four) and RWKV6-3B
+    uncut through the port's engine; their reduced configs on the CPU.
+    Checks the requests, the launches (one flash a prefill, one paged a
+    decode step), a bit-identical replay of a Jamba decode step with no
+    atomic kernel on its path, the float32 kernel path against the plain
+    path at 5 layers where the routing agrees, and RWKV's card against
+    the CPU on both wkv branches.  Returns the launch counts of the
+    served paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry, transformer
+    from repro_torch.serve import Engine, EngineConfig, Request
+    from repro_torch.tree import leaves, tree_map
+
+    t_lap = [time.perf_counter()]
+
+    def lap():
+        """Seconds since the last lap (the phase's parts, for the log)."""
+        t, t_lap[0] = t_lap[0], time.perf_counter()
+        return t_lap[0] - t
+
+    full = get_config(HYBRID_ARCH)
+    base = full.reduced() if args.cpu_rehearsal else full
+    cfg = dataclasses.replace(base, n_layers=HYBRID_LAYERS)
+    layout = transformer.layer_layout(cfg)
+    t0 = time.perf_counter()
+    params = registry.get_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(HYBRID_SEED), dev)
+    sync(dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    kinds = " ".join(k + ("+moe" if m else "") for k, m in layout)
+    log(f"hybrid model {cfg.name}: layers={cfg.n_layers} of "
+        f"{full.n_layers} ({kinds}) "
+        f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
+        f"experts={cfg.moe.n_experts} top_k={cfg.moe.top_k} "
+        f"d_expert_ff={cfg.moe.d_expert_ff} d_state={cfg.ssm.d_state} "
+        f"d_conv={cfg.ssm.d_conv} expand={cfg.ssm.expand} vocab={cfg.vocab} "
+        f"{cfg.dtype} params={n_params} ({n_params * 2 / 2 ** 30:.2f} GiB; "
+        f"param_count()={cfg.param_count():.0f}) "
+        f"init_s={time.perf_counter() - t0:.2f}")
+
+    # -- the served path ----------------------------------------------------
+    eng, counts, routes = served("hybrid", cfg, params, dev, K, Engine,
+                                 EngineConfig, Request)
+    n_attn = sum(k == "attn" for k, _ in layout)
+    n_moe = sum(m for _, m in layout)
+    if dev.type == "cuda":
+        check(counts["flash_attention"] == n_attn * len(eng.prefill_times),
+              f"hybrid: {counts['flash_attention']} flash launches for "
+              f"{len(eng.prefill_times)} prefills, not {n_attn} each")
+        check(counts["paged_attention"] == n_attn * len(eng.decode_times),
+              f"hybrid: {counts['paged_attention']} paged launches for "
+              f"{len(eng.decode_times)} decode steps, not {n_attn} each")
+    slots = LM_ENGINE["max_batch"]
+    decode_calls = [r for r in routes.calls if r.top_e.shape[0] == slots]
+    dropped = [int((~r.keep).sum()) for r in decode_calls]
+    prefill_drop = sum(int((~r.keep).sum()) for r in routes.calls
+                       if r.top_e.shape[0] != slots)
+    steps = max(len(eng.decode_times), 1)
+    log(f"hybrid moe: {len(decode_calls)} decode-step calls ({n_moe} MoE "
+        f"layers x {len(eng.decode_times)} steps), capacity "
+        f"{decode_calls[0].cap if decode_calls else 'none'} an expert at "
+        f"{slots} slots; slot choices dropped a step: mean "
+        f"{sum(dropped) / steps:.2f} of {n_moe * slots * cfg.moe.top_k} "
+        f"(max in one layer {max(dropped, default=0)}); prefill drops "
+        f"{prefill_drop} over {len(eng.prefill_times)} prompts")
+    check(len(decode_calls) == n_moe * len(eng.decode_times),
+          f"hybrid moe: {len(decode_calls)} decode routing calls, not "
+          f"{n_moe} a step")
+    del routes
+
+    # decode steps replayed from the same cache: logits and every cache
+    # leaf bit for bit (no float atomics: the MoE combine is k gathers)
+    toks = torch.from_numpy(np.random.default_rng(HYBRID_SEED + 4).integers(
+        1, cfg.vocab, (slots, 1)).astype(np.int32)).to(dev)
+    snap = tree_map(torch.clone, eng.cache)
+    runs = []
+    for _ in range(2):
+        eng.cache = tree_map(torch.clone, snap)
+        rows = [eng.decode(toks)]
+        for t in range(HYBRID_REPLAY - 1):
+            rows.append(eng.decode(rows[-1].argmax(-1, keepdim=True)
+                                   .to(torch.int32)))
+        sync(dev)
+        runs.append((torch.stack(rows), tree_map(torch.clone, eng.cache)))
+    same = torch.equal(bits(runs[0][0]), bits(runs[1][0])) and all(
+        torch.equal(bits(a) if a.is_floating_point() else a,
+                    bits(b) if b.is_floating_point() else b)
+        for a, b in zip(leaves(runs[0][1]), leaves(runs[1][1])))
+    check(same, "hybrid replay: two replays of the decode steps differ")
+    log(f"hybrid replay: {HYBRID_REPLAY} decode steps of {slots} slots "
+        f"from one cache, twice: logits and every cache leaf bit-identical "
+        f"{same}")
+    eng.cache = snap
+    del runs
+    split = decode_window("hybrid", eng, dev, toks)
+
+    # the MoE expert GEMMs of one decode step alone (cap 1 at 8 slots):
+    # four layers x (gate, up, down) over every expert's weights
+    moe_p = next(p["moe"] for p in params["layers"] if "moe" in p)
+    cap = max(1, int(-(-slots * cfg.moe.top_k // cfg.moe.n_experts)
+                     * cfg.moe.capacity_factor))
+    buf = torch.randn((cfg.moe.n_experts, cap, cfg.d_model),
+                      generator=torch.Generator(device=dev).manual_seed(1),
+                      device=dev).to(moe_p["w_gate"].dtype)
+
+    def expert_gemms():
+        h = torch.nn.functional.silu(torch.bmm(buf, moe_p["w_gate"])) \
+            * torch.bmm(buf, moe_p["w_up"])
+        return torch.bmm(h, moe_p["w_down"])
+
+    reps = 50 if dev.type == "cuda" else 2
+    layer_ms = time_ms(expert_gemms, reps, dev)
+    w_bytes = sum(moe_p[n].numel() * moe_p[n].element_size()
+                  for n in ("w_gate", "w_up", "w_down"))
+    step_ms = sum(split.values()) if split else None
+    log(f"hybrid moe expert GEMMs: {layer_ms:.4f} ms a layer, "
+        f"{n_moe * layer_ms:.4f} ms a step ({n_moe} layers, "
+        f"{n_moe * w_bytes / 1e9:.2f} GB of expert weights read: bound "
+        f"{n_moe * w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); "
+        f"of the traced decode step's device ms "
+        f"{'not measured' if step_ms is None else f'{step_ms:.3f}'} "
+        f"[{lap():.1f} s]")
+    if dev.type == "cuda":
+        log(f"hybrid engine peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del eng, params, moe_p, buf
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- float32: the kernel path against the plain path at 5 layers -----
+    # Layers 0-4 hold four Mamba layers (MoE in 1 and 3) and the first
+    # attention layer; routing is compared call by call and a row
+    # (request, step) counts only while every call up to it agreed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c32 = dataclasses.replace(base, n_layers=HYBRID_F32_LAYERS,
+                              dtype="float32")
+    t0 = time.perf_counter()
+    p32 = registry.get_model(c32).init(
+        torch.Generator(device=dev).manual_seed(HYBRID_SEED + 5), dev)
+    sync(dev)
+    n32 = sum(t.numel() for t in leaves(p32))
+    forced = lm_requests(Request, c32.vocab, LM_FORCED[0], HYBRID_SEED + 1)
+    fsteps = torch.from_numpy(np.random.default_rng(HYBRID_SEED + 2)
+                              .integers(1, c32.vocab, (LM_FORCED[0],
+                                                       LM_FORCED[1], 1))
+                              .astype(np.int32))
+
+    def teacher_forced(kern):
+        e = Engine(c32, p32, EngineConfig(
+            max_batch=LM_FORCED[0], max_context=LM_ENGINE["max_context"],
+            block_size=LM_ENGINE["block_size"]), use_kernels=kern)
+        marks = []
+        with RouteLog() as rl:
+            rows = []
+            for i, r in enumerate(forced):
+                rows.append([e.prefill_slot(i, r.prompt).float()])
+                marks.append(len(rl.calls))
+            for t in range(LM_FORCED[1]):
+                step = e.decode(fsteps[:, t].to(dev)).float()
+                for i in range(LM_FORCED[0]):
+                    rows[i].append(step[i])
+                marks.append(len(rl.calls))
+        return (torch.stack([torch.stack(r) for r in rows]), rl.calls,
+                marks)
+
+    K.reset_launch_counts()
+    got, rk, marks = teacher_forced(True)
+    f_counts = K.launch_counts()
+    want, rp, _ = teacher_forced(False)
+    agree = [torch.equal(a.top_e, b.top_e) and torch.equal(a.keep, b.keep)
+             for a, b in zip(rk, rp)]
+    n_req = LM_FORCED[0]
+    # row (i, 0): request i's prefill calls; row (i, s): those and every
+    # decode call up to step s (the slots share the experts' capacity)
+    ok_rows = torch.zeros(got.shape[:2], dtype=torch.bool)
+    start = 0
+    for i in range(n_req):
+        ok_rows[i, 0] = all(agree[start:marks[i]])
+        start = marks[i]
+    for s in range(LM_FORCED[1]):
+        upto = all(agree[marks[n_req - 1]:marks[n_req + s]])
+        for i in range(n_req):
+            ok_rows[i, s + 1] = ok_rows[i, 0] and upto
+    disagree = int((~ok_rows).sum())
+    rows = ok_rows.numel()
+    err = float((got - want).abs()[ok_rows].max()) if ok_rows.any() \
+        else float("nan")
+    ok = bool(torch.isfinite(got).all()) and bool(torch.allclose(
+        got[ok_rows], want[ok_rows], rtol=LM_F32_TOL, atol=LM_F32_TOL))
+    check(ok, f"hybrid teacher-forced float32: the kernel path differs "
+              f"from the plain path (max abs err {err:.3g}, rtol=atol "
+              f"{LM_F32_TOL})")
+    check(disagree <= HYBRID_DISAGREE * rows,
+          f"hybrid teacher-forced float32: routing differs at {disagree} "
+          f"of {rows} rows (limit {HYBRID_DISAGREE:.0%})")
+    if dev.type == "cuda":
+        check(f_counts["flash_attention"] > 0 and
+              f_counts["paged_attention"] > 0,
+              "hybrid teacher-forced: the kernel path launched "
+              f"{ {k: v for k, v in f_counts.items() if v} }")
+    log(f"hybrid teacher-forced float32 ({c32.n_layers} layers, "
+        f"params={n32} = {n32 * 4 / 2 ** 30:.2f} GiB, TF32 off, init_s="
+        f"{time.perf_counter() - t0:.2f}): {n_req} requests (prompts "
+        f"{[len(r.prompt) for r in forced]}), prefill + {LM_FORCED[1]} "
+        f"decode steps; routing calls {len(rk)} (agree "
+        f"{sum(agree)}), rows compared {rows - disagree} of {rows} "
+        f"(routing differs at {disagree}); kernels vs plain max_abs_err="
+        f"{err:.4g} (rtol=atol {LM_F32_TOL}) ok={ok}; max|logit|="
+        f"{float(want.abs().max()):.3g} [{lap():.1f} s]")
+    del p32, got, want, rk, rp
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- RWKV6-3B: served uncut ---------------------------------------------
+    rfull = get_config(RWKV_ARCH)
+    rcfg = rfull.reduced() if args.cpu_rehearsal else rfull
+    t0 = time.perf_counter()
+    rparams = registry.get_model(rcfg).init(
+        torch.Generator(device=dev).manual_seed(HYBRID_SEED + 6), dev)
+    sync(dev)
+    rn = sum(t.numel() for t in leaves(rparams))
+    log(f"rwkv model {rcfg.name}: layers={rcfg.n_layers} d={rcfg.d_model} "
+        f"heads={rcfg.d_model // rcfg.hd}x{rcfg.hd} d_ff={rcfg.d_ff} "
+        f"vocab={rcfg.vocab} {rcfg.dtype} params={rn} "
+        f"({rn * 2 / 2 ** 30:.2f} GiB; param_count()="
+        f"{rcfg.param_count():.0f}) init_s={time.perf_counter() - t0:.2f}")
+    reng, rcounts, _ = served("rwkv", rcfg, rparams, dev, K, Engine,
+                              EngineConfig, Request)
+    decode_window("rwkv", reng, dev, torch.from_numpy(
+        np.random.default_rng(HYBRID_SEED + 9).integers(
+            1, rcfg.vocab, (slots, 1)).astype(np.int32)).to(dev))
+    log(f"rwkv served [{lap():.1f} s]")
+    check(sum(rcounts.values()) == 0,
+          f"rwkv: an attention-free model launched {rcounts}")
+    del reng, rparams
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- RWKV: the card against the CPU, both wkv branches ---------------
+    n_cmp, prompts, n_steps = RWKV_CMP
+    c2 = dataclasses.replace(rcfg, n_layers=n_cmp, dtype="float32")
+    api = registry.get_model(c2)
+    p_dev = api.init(torch.Generator(device=dev).manual_seed(
+        HYBRID_SEED + 7), dev)
+    p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+    rng = np.random.default_rng(HYBRID_SEED + 8)
+    for plen in prompts:
+        toks = torch.from_numpy(rng.integers(
+            1, c2.vocab, (1, plen + n_steps)).astype(np.int32))
+        res = {}
+        for where, p in (("card", p_dev), ("cpu", p_cpu)):
+            d = dev if where == "card" else torch.device("cpu")
+            t1 = time.perf_counter()
+            logits, cache = api.prefill(p, {"tokens": toks[:, :plen].to(d)},
+                                        plen + n_steps)
+            out = [logits[:, -1]]
+            for t in range(plen, plen + n_steps):
+                step, cache = api.decode_step(p, cache,
+                                              toks[:, t:t + 1].to(d))
+                out.append(step[:, 0])
+            sync(dev)
+            res[where] = (torch.stack(out, 1).float().cpu(),
+                          [t.cpu() for t in leaves(cache["layers"])],
+                          time.perf_counter() - t1)
+        (a, sa, ta), (b, sb, tb) = res["card"], res["cpu"]
+        err = float((a - b).abs().max())
+        serr = max(float((x - y).abs().max()) for x, y in zip(sa, sb))
+        ok = bool(torch.isfinite(a).all()) and bool(torch.allclose(
+            a, b, rtol=LM_F32_TOL, atol=LM_F32_TOL))
+        branch = "chunked" if plen % 256 == 0 else "per-token"
+        check(ok, f"rwkv card vs cpu ({plen}-token prompt, {branch}): "
+                  f"max abs err {err:.3g} (rtol=atol {LM_F32_TOL})")
+        log(f"rwkv card vs cpu float32 ({n_cmp} layers, TF32 off): "
+            f"{plen}-token prompt ({branch} wkv) + {n_steps} decode steps: "
+            f"logits max_abs_err={err:.4g} (rtol=atol {LM_F32_TOL}) "
+            f"state max_abs_err={serr:.4g} max|logit|="
+            f"{float(b.abs().max()):.3g} ok={ok}; card_s={ta:.2f} "
+            f"cpu_s={tb:.2f} [{lap():.1f} s]")
+    del p_dev, p_cpu
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {k: counts.get(k, 0) + rcounts.get(k, 0) for k in K.KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -3899,6 +4426,16 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
+    # -- lm_hybrid: Jamba-v0.1 (8 layers) and RWKV6-3B served ---------------
+    t0 = time.perf_counter()
+    hybrid_counts = run_lm_hybrid(args, dev, K)
+    log(f"lm_hybrid phase_s={time.perf_counter() - t0:.1f}")
+    if dev.type == "cuda":
+        log(f"lm_hybrid peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
     # -- train: StableLM-1.6B through the port's train step -----------------
     t0 = time.perf_counter()
     train_counts = run_train(args, dev, K)
@@ -3930,6 +4467,10 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         for k in ("spmv_ell", "spmv_csr", "spmv_csr_seg"):
             check(counts[k] > 0, f"main path launched {k} no time")
+    t0 = time.perf_counter()
+    n_twins = plain_twins(cache)
+    log(f"main plain twins: {n_twins} plans reuse the kernel runs' "
+        f"containers (no recompile) in {time.perf_counter() - t0:.2f} s")
     plain = {fam: drive(drivers, fam, adj, cache, dev, False)
              for fam, adj in adjs.items()}
     for fam in adjs:
@@ -3969,7 +4510,8 @@ def main(argv=None) -> int:
         f"{dplain.n_iters}")
     compare_pagerank("dia", dres, dplain)
     phase_counts = {"attention": attn_counts, "lm": lm_counts,
-                    "train": train_counts, "main": counts, "dia": dia_counts}
+                    "lm_hybrid": hybrid_counts, "train": train_counts,
+                    "main": counts, "dia": dia_counts}
 
     # -- the reordering, per-call and BELL paths ------------------------------
     plans = {}
@@ -3983,7 +4525,7 @@ def main(argv=None) -> int:
 
     # -- compile: the reference's default plan.compile -----------------------
     t0 = time.perf_counter()
-    phase_counts["compile"], band_rcm = run_compile(
+    phase_counts["compile"], band_rcm, rmat_rcm = run_compile(
         args, dev, K, P, core, adjs, band, scrambled, rmat_matrix)
     log(f"compile phase_s={time.perf_counter() - t0:.1f}")
     if band_rcm[0] is None:         # the oracle kept the scrambled order
@@ -3997,8 +4539,8 @@ def main(argv=None) -> int:
     del band, scrambled
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    rm = run_rmat_rcm(adjs["rmat"], kern["rmat"]["pagerank"][0], dev, K, T,
-                      drivers, cache)
+    rm = run_rmat_rcm(adjs["rmat"], kern["rmat"]["pagerank"][0], dev, K,
+                      drivers, cache, rmat_rcm)
     phase_counts["rmat_rcm"] = rm["counts"]
     rb = run_bell(args.bell_log2n, dev, K, CSR, core, drivers, cache,
                   args.reps)

@@ -4,7 +4,7 @@
 Model code calls `constrain(x, "dp", None, "model")` with logical axis
 names.  The reference turns that into a sharding constraint when the
 launch layer has installed a mesh, and into the identity otherwise.  The
-port has no meshes yet (ROADMAP A11, slice 3), so it is the identity.
+port has no meshes yet (ROADMAP A11, slice 3c), so it is the identity.
 """
 from __future__ import annotations
 

@@ -1,6 +1,9 @@
 """Serving launcher: batched-request demo over the decode engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --layers 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --reduced --device cpu --requests 16 --max-new 12
 
@@ -8,11 +11,15 @@ Drives the continuous-batching engine (serve/engine.py) with a synthetic
 request trace: mixed prompt lengths, per-request token budgets, over
 seeded weights.  Prints per-request outputs and scheduler statistics
 (pool utilization, preemptions, steps).  Runs on the card unless
-`--device cpu` is given; a kernel's error is never caught.
+`--device cpu` is given; a kernel's error is never caught.  Every
+decoder config serves (dense, MoE, the Mamba hybrid, RWKV); `--layers`
+cuts the depth, as a model whose weights outgrow the device needs
+(Jamba's 32 layers hold 104 GB in bfloat16, one period of 8 holds 26.5).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -38,6 +45,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve only the first N layers (depth cut)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -52,10 +61,20 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if cfg.is_encdec:
         raise SystemExit("serve launcher drives decoder-only archs")
 
     dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        need = cfg.param_count() * (2 if cfg.dtype == "bfloat16" else 4)
+        have = torch.cuda.get_device_properties(dev).total_memory
+        if need > 0.9 * have:
+            raise SystemExit(
+                f"{cfg.name}: {cfg.n_layers} layers hold {need / 1e9:.1f} "
+                f"GB of weights, the device {have / 1e9:.1f} GB; cut the "
+                "depth with --layers")
     eng = make_engine(
         cfg, gen=torch.Generator(device=dev).manual_seed(args.seed),
         device=dev, ecfg=EngineConfig(

@@ -2,7 +2,7 @@
 `repro.launch.steps` the training launcher needs).  The reference's
 step-plan builders (`build_train_plan`, `build_prefill_plan`,
 `build_decode_plan`, `LoweredPlan`) lower JAX shardings for its multi-pod
-dry-run and wait for it (ROADMAP A11, slice 3)."""
+dry-run and wait for it (ROADMAP A11, slice 3d)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig

@@ -78,7 +78,7 @@ def main(argv=None):
         raise NotImplementedError(
             f"--model-parallel {args.model_parallel}: the port trains on "
             "one device; model-parallel meshes wait for ROADMAP A11, "
-            "slice 3 (distributed)")
+            "slice 3c (distributed)")
 
     dev = resolve_device(args.device)
     cfg, api, tc = build(args)

@@ -1,8 +1,10 @@
-"""The LM scaffold's models on PyTorch: decoder LMs over attention
-blocks (dense and early-fusion VLM configs), the reference's API and the
-carrier of its parameters."""
-from . import common, convert, registry, transformer
+"""The LM scaffold's models on PyTorch: decoder LMs over attention,
+Mamba and RWKV blocks with dense or MoE feed-forwards (every decoder
+config of the reference), the reference's API and the carrier of its
+parameters."""
+from . import (common, convert, mamba, moe, registry, rwkv6, transformer,
+               tuning)
 from .registry import ModelAPI, get_model
 
-__all__ = ["common", "convert", "registry", "transformer", "ModelAPI",
-           "get_model"]
+__all__ = ["common", "convert", "mamba", "moe", "registry", "rwkv6",
+           "transformer", "tuning", "ModelAPI", "get_model"]

@@ -6,7 +6,10 @@ holds `embed`, `final_norm`, `head` (unless tied), a `prefix` list of
 blocks and `stacks`: per period position a block whose every leaf has a
 leading n_super dim.  The port's model runs a plain `layers` list, layer
 `prefix_len + u·period + pos` being `stacks[pos][...][u]`.  Weights stay
-(d_in, d_out) in both.
+(d_in, d_out) in both.  Every block kind's leaves cross the same way:
+a MoE layer's (n_super, E, d, ff) expert stacks and router, Mamba's
+A_log, D and conv weights, RWKV's u, mixes and ln_x; a stacked leaf
+splits along its first dim only.
 
   params_from_reference  the reference's tree (numpy, jax or torch
                          leaves) -> the port's; a stacked leaf becomes one

@@ -11,7 +11,7 @@ prompts, paged attention for decode steps).  The kernels have no
 backward, so training differentiates `loss_fn` with `use_kernels=False`
 (`train.loop` does).  The reference's
 `input_specs` family serves its multi-pod dry-run and waits for the
-port's `launch/dryrun` (ROADMAP A11, slice 3).
+port's `launch/dryrun` (ROADMAP A11, slice 3d).
 """
 from __future__ import annotations
 

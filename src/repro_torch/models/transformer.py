@@ -1,24 +1,29 @@
-"""Decoder LM over attention blocks: the counterpart of
-`repro.models.transformer`, for dense and early-fusion VLM configs
-(granite-8b, stablelm-1.6b, starcoder2-15b, qwen2-72b, chameleon-34b).
+"""Decoder LM over every decoder block kind: the counterpart of
+`repro.models.transformer` (dense, MoE, Mamba + MoE hybrid, RWKV and
+early-fusion VLM configs).
 
 The reference groups layers as [prefix] + n_super x [period] so that
-`lax.scan` compiles one period; the port keeps `layer_layout` and
-`split_layout` but runs a plain list of layers, layer `prefix_len +
-u·period + pos` being the reference's `stacks[pos][u]` (`convert.py`
-carries parameters across).  Caches are {'layers': [{'kv': {'k', 'v'}}],
-'pos': (B,) int32}: every layer's K and V are (B, S_max, KVH, hd), and
-per-slot positions let serving slots sit at different depths.  A forward
-writes the cache's K and V in place and returns a new dict around them
-with pos advanced.
+`lax.scan` compiles one period (Jamba: a period of 8, Kimi: a prefix of
+1); the port keeps `layer_layout` and `split_layout` but runs a plain
+list of layers, layer `prefix_len + u·period + pos` being the
+reference's `stacks[pos][u]` (`convert.py` carries parameters across).
+A block is attention, Mamba or RWKV time mix, then a MoE layer (with
+Arctic's dense residual MLP beside it), RWKV's channel mix or an MLP.
 
-Training differentiates `loss_fn` with autograd; `remat` recomputes
-each layer's activations in the backward pass (`torch.utils.checkpoint`
-per layer; the reference checkpoints each scanned super-block, the same
-layers here: every ported config has period 1 and no prefix).
+Caches are {'layers': [...], 'pos': (B,) int32}, a layer's entry being
+{'kv': {'k', 'v'}} (each (B, S_max, KVH, hd)), {'ssm': {'h', 'conv'}}
+or {'time': {'S', 'last'}, 'channel': {'last'}}; per-slot positions let
+serving slots sit at different depths.  A forward writes the attention
+caches' K and V in place and returns a new dict around them, the
+recurrent states as new tensors, with pos advanced.
 
-Mamba, RWKV and MoE blocks and the encoder-decoder wait for ROADMAP A11,
-slice 3: their configs raise NotImplementedError.
+Training differentiates `loss_fn` with autograd (the MoE layers' aux
+losses included); `remat` recomputes each layer's activations in the
+backward pass (`torch.utils.checkpoint` per layer, where the reference
+checkpoints each scanned super-block: the same recomputation).
+
+The encoder-decoder waits for ROADMAP A11, slice 3b: its config raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -32,6 +37,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed.api import constrain
+from repro_torch.tree import tree_map
+from . import mamba as _mamba
+from . import moe as _moe
+from . import rwkv6 as _rwkv
 from .common import (apply_attention, apply_mlp, apply_norm, cache_index,
                      dtype_of, embed_init, init_attention, init_mlp,
                      init_norm, lm_loss, rope_dims, rope_tables)
@@ -64,51 +73,98 @@ def split_layout(cfg: ModelConfig):
 
 
 def require_supported(cfg: ModelConfig) -> None:
-    """Attention blocks without MoE only, decoder-only."""
+    """Decoder-only configs: every block kind but the encoder-decoder."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder model is not ported yet "
-            "(ROADMAP A11, slice 3)")
-    other = sorted({f"{kind}{' + MoE' if moe else ''}"
-                    for kind, moe in layer_layout(cfg)
-                    if kind != "attn" or moe})
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(other)} blocks are not ported yet "
-            "(ROADMAP A11, slice 3)")
+            "(ROADMAP A11, slice 3b)")
 
 
 # ---------------------------------------------------------------------------
 # One block
 # ---------------------------------------------------------------------------
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    return {"norm1": init_norm(cfg, device), "norm2": init_norm(cfg, device),
-            "attn": init_attention(gen, cfg, device),
-            "mlp": init_mlp(gen, cfg, device)}
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+               is_moe: bool, device) -> Params:
+    p: Params = {"norm1": init_norm(cfg, device),
+                 "norm2": init_norm(cfg, device)}
+    if kind == "attn":
+        p["attn"] = init_attention(gen, cfg, device)
+    elif kind == "mamba":
+        p["mamba"] = _mamba.init_mamba(gen, cfg, device)
+    elif kind == "rwkv":
+        p["time"] = _rwkv.init_rwkv_time(gen, cfg, device)
+    else:
+        raise ValueError(kind)
+    if is_moe:
+        p["moe"] = _moe.init_moe(gen, cfg, device)
+        if cfg.moe.dense_residual:
+            p["mlp"] = init_mlp(gen, cfg, device)
+    elif kind == "rwkv":
+        p["channel"] = _rwkv.init_rwkv_channel(gen, cfg, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, device)
+    return p
 
 
-def apply_block(p: Params, cfg: ModelConfig, x: torch.Tensor, positions,
-                cache: Optional[Params], cache_pos, *, index=None, rope=None,
-                use_kernels: bool = True
-                ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (x, new_cache)."""
+def apply_block(p: Params, cfg: ModelConfig, kind: str, is_moe: bool,
+                x: torch.Tensor, positions, cache: Optional[Params],
+                cache_pos, *, index=None, rope=None, use_kernels: bool = True
+                ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Returns (x, new_cache, aux_loss_scalar)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(p["norm1"], x)
-    out, new_kv = apply_attention(
-        p["attn"], cfg, h, positions, cache=cache["kv"] if cache else None,
-        cache_pos=cache_pos, index=index, rope=rope, use_kernels=use_kernels)
+    if kind == "attn":
+        out, new_kv = apply_attention(
+            p["attn"], cfg, h, positions,
+            cache=cache["kv"] if cache else None, cache_pos=cache_pos,
+            index=index, rope=rope, use_kernels=use_kernels)
+        new_cache = {"kv": new_kv} if new_kv is not None else None
+    elif kind == "mamba":
+        out, new_ms = _mamba.apply_mamba(
+            p["mamba"], cfg, h, state=cache["ssm"] if cache else None)
+        new_cache = {"ssm": new_ms} if new_ms is not None else None
+    elif kind == "rwkv":
+        out, new_ts = _rwkv.apply_rwkv_time(
+            p["time"], cfg, h, state=cache["time"] if cache else None)
+        new_cache = {"time": new_ts} if new_ts is not None else None
+    else:
+        raise ValueError(kind)
     x = constrain(x + out, "dp", None, None)
-    x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["norm2"], x))
+
+    h2 = apply_norm(p["norm2"], x)
+    if is_moe:
+        mo, moe_aux = _moe.apply_moe_auto(p["moe"], cfg, h2)
+        aux = aux + sum(moe_aux.values())
+        if cfg.moe.dense_residual:
+            mo = mo + apply_mlp(p["mlp"], cfg, h2)
+        x = x + mo
+    elif kind == "rwkv":
+        co, new_cs = _rwkv.apply_rwkv_channel(
+            p["channel"], cfg, h2, state=cache["channel"] if cache else None)
+        if new_cache is not None or new_cs is not None:
+            new_cache = dict(new_cache or {})
+            new_cache["channel"] = new_cs
+        x = x + co
+    else:
+        x = x + apply_mlp(p["mlp"], cfg, h2)
     x = constrain(x, "dp", None, None)
-    return x, ({"kv": new_kv} if new_kv is not None else None)
+    return x, new_cache, aux
 
 
-def init_block_cache(cfg: ModelConfig, batch: int, max_len: int,
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      device) -> Params:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"kv": {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
-                   "v": torch.zeros(shape, dtype=dtype_of(cfg),
-                                    device=device)}}
+    if kind == "attn":
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+        return {"kv": {"k": torch.zeros(shape, dtype=dtype_of(cfg),
+                                        device=device),
+                       "v": torch.zeros(shape, dtype=dtype_of(cfg),
+                                        device=device)}}
+    if kind == "mamba":
+        return {"ssm": _mamba.init_mamba_state(cfg, batch, device)}
+    if kind == "rwkv":
+        return _rwkv.init_rwkv_state(cfg, batch, device)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +216,8 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
                  "final_norm": init_norm(cfg, dev)}
     if not cfg.tie_embeddings:
         p["head"] = embed_init(gen, cfg.vocab, cfg.d_model, dt, dev).T
-    p["layers"] = [init_block(gen, cfg, dev) for _ in range(cfg.n_layers)]
+    p["layers"] = [init_block(gen, cfg, kind, is_moe, dev)
+                   for kind, is_moe in layer_layout(cfg)]
     return p
 
 
@@ -168,8 +225,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> Params:
     require_supported(cfg)
     dev = resolve_device(device)
-    return {"layers": [init_block_cache(cfg, batch, max_len, dev)
-                       for _ in range(cfg.n_layers)],
+    return {"layers": [init_block_cache(cfg, kind, batch, max_len, dev)
+                       for kind, _ in layer_layout(cfg)],
             # per-slot positions: serving slots sit at different depths
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
@@ -181,23 +238,31 @@ def _batch_rows(n: int, slot, width: int) -> slice:
 
 
 def slice_cache(cache: Params, slot, width: int = 1) -> Params:
-    """A copy of `width` batch rows starting at `slot`."""
+    """A copy of `width` batch rows starting at `slot`: every leaf's
+    leading dim is the batch."""
     rows = _batch_rows(cache["pos"].shape[0], slot, width)
-    return {"layers": [{"kv": {n: t[rows].clone()
-                               for n, t in layer["kv"].items()}}
-                       for layer in cache["layers"]],
-            "pos": cache["pos"][rows].clone()}
+    return tree_map(lambda t: t[rows].clone(), cache)
 
 
 def merge_cache(cache: Params, sub: Params, slot) -> Params:
-    """Write a sliced sub-cache back into the batch at `slot`, in place;
-    returns the cache."""
+    """Write a sliced sub-cache back into the batch at `slot`, in place
+    (every leaf); returns the cache."""
     rows = _batch_rows(cache["pos"].shape[0], slot, sub["pos"].shape[0])
-    for layer, sub_layer in zip(cache["layers"], sub["layers"]):
-        for name, t in layer["kv"].items():
-            t[rows] = sub_layer["kv"][name].to(t.dtype)
-    cache["pos"][rows] = sub["pos"].to(cache["pos"].dtype)
+
+    def put(t, new):
+        t[rows] = new.to(t.dtype)
+        return t
+
+    tree_map(put, cache, sub)
     return cache
+
+
+def _first_kv(cache: Params) -> Optional[torch.Tensor]:
+    """The first attention layer's K cache, or None (no attention)."""
+    for layer in cache["layers"]:
+        if "kv" in layer:
+            return layer["kv"]["k"]
+    return None
 
 
 def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
@@ -207,14 +272,16 @@ def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
     """-> (hidden (B,S,d), new_cache, aux_loss).
 
     Training: cache None.  Prefill: a zero-pos cache.  Decode: S == 1.
-    aux_loss is 0 (no MoE block is ported).  `remat` ("none", "dots",
-    "full") applies to a forward without a cache that autograd records."""
+    aux_loss sums the MoE layers' balance and z-losses (0 without MoE).
+    `remat` ("none", "dots", "full") applies to a forward without a
+    cache that autograd records."""
     require_supported(cfg)
     if embeds is None:
         embeds = params["embed"][tokens.long()]
     x = constrain(embeds, "dp", None, None)
     b, s, _ = x.shape
     dev = x.device
+    layout = layer_layout(cfg)
 
     cache_pos = cache["pos"] if cache is not None else None
     steps = torch.arange(s, device=dev)
@@ -223,33 +290,37 @@ def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
     rope = rope_tables(positions, hd_rot, cfg.rope_theta) if hd_rot else None
     index = None
     if cache is not None:
-        s_max = cache["layers"][0]["kv"]["k"].shape[1] \
-            if cache["layers"] else 0
-        index = cache_index(cache_pos, s_max, s, use_kernels)
+        k0 = _first_kv(cache)
+        if k0 is not None:
+            index = cache_index(cache_pos, k0.shape[1], s, use_kernels)
 
     remat_kw = _remat_kwargs(remat)
     if cache is not None or not torch.is_grad_enabled():
         remat_kw = None
 
-    def train_block(p, x):
-        return apply_block(p, cfg, x, positions, None, None, rope=rope,
-                           use_kernels=use_kernels)[0]
+    def train_block(p, kind, is_moe, x):
+        x, _, aux = apply_block(p, cfg, kind, is_moe, x, positions, None,
+                                None, rope=rope, use_kernels=use_kernels)
+        return x, aux
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     new_layers = []
-    for i, p in enumerate(params["layers"]):
+    for i, (p, (kind, is_moe)) in enumerate(zip(params["layers"], layout)):
         if remat_kw is not None:
-            x = checkpoint(train_block, p, x, **remat_kw)
-            continue
-        blk_cache = cache["layers"][i] if cache is not None else None
-        x, nc = apply_block(p, cfg, x, positions, blk_cache, cache_pos,
-                            index=index, rope=rope, use_kernels=use_kernels)
-        new_layers.append(nc)
+            x, aux = checkpoint(train_block, p, kind, is_moe, x, **remat_kw)
+        else:
+            blk_cache = cache["layers"][i] if cache is not None else None
+            x, nc, aux = apply_block(p, cfg, kind, is_moe, x, positions,
+                                     blk_cache, cache_pos, index=index,
+                                     rope=rope, use_kernels=use_kernels)
+            new_layers.append(nc if nc is not None else blk_cache)
+        aux_total = aux_total + aux
 
     x = apply_norm(params["final_norm"], x)
     new_cache = None
     if cache is not None:
         new_cache = {"layers": new_layers, "pos": cache_pos + s}
-    return x, new_cache, torch.zeros((), dtype=torch.float32, device=dev)
+    return x, new_cache, aux_total
 
 
 def head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:

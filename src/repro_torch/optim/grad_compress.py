@@ -7,7 +7,7 @@ dequantizes, and feeds the quantization residual back into the next
 step's gradient (error feedback keeps the scheme unbiased in the long
 run; Karimireddy et al. 2019).  The quantizer and its state are ported;
 the cross-pod all-reduce needs the reference's `pod` mesh axis and
-waits for the distributed slice (ROADMAP A11, slice 3).
+waits for the distributed slice (ROADMAP A11, slice 3c).
 """
 from __future__ import annotations
 
@@ -64,4 +64,4 @@ def crosspod_allreduce_compressed(grads: Params, state: CompressionState,
     raise NotImplementedError(
         "crosspod_allreduce_compressed: the cross-pod all-reduce needs the "
         f"reference's {axis_name!r} mesh axis, which is not ported yet "
-        "(ROADMAP A11, slice 3: distributed)")
+        "(ROADMAP A11, slice 3c: distributed)")

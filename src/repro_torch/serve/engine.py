@@ -11,7 +11,9 @@ The engine owns a fixed-capacity slot batch and drives the Scheduler:
 
 Each prompt runs into a fresh width-1 cache, padded to a power-of-two
 bucket (at most max_context), then is merged into the batch cache at its
-slot with its true length as pos.  Prompts go through the flash kernel,
+slot with its true length as pos.  The restamped pos hides the pad
+tokens (id 0) from attention; a Mamba or RWKV state and the MoE
+capacity consume them, as the reference's do (ROADMAP C7).  Prompts go through the flash kernel,
 decode steps through the paged kernel over the dense cache
 (`models/common.py`); `use_kernels=False` runs the plain attention.  An
 inactive slot's pos keeps growing, as in the reference; past max_context

@@ -3,9 +3,11 @@
 the same parameters and inputs for the reference and the port.
 
 Both packages get the reference's seeded parameter tree, its zero biases
-and unit norm scales replaced by seeded noise (so biases and norms are
-exercised), as numpy leaves: to the reference as jnp arrays, to the port
-through `convert.params_from_reference`.
+(Mamba's conv and dt biases and RWKV's w0 too), unit norm scales and
+Mamba's D, and RWKV's 0.5 token-shift mixes replaced by seeded noise
+(so every such parameter is exercised), as numpy leaves: to the
+reference as jnp arrays, to the port through
+`convert.params_from_reference`.
 """
 import dataclasses
 
@@ -39,10 +41,12 @@ def _perturb(tree, rng, path=()):
         return [_perturb(v, rng, path) for v in tree]
     a = np.asarray(tree)
     name = path[-1]
-    if name in ("bq", "bk", "bv", "bias"):
+    if name in ("bq", "bk", "bv", "bias", "conv_b", "dt_bias", "w0"):
         return (rng.normal(size=a.shape) * 0.1).astype(a.dtype)
-    if name == "scale":
+    if name in ("scale", "D"):
         return (1.0 + rng.normal(size=a.shape) * 0.1).astype(a.dtype)
+    if name.startswith("mix_"):
+        return (0.5 + rng.normal(size=a.shape) * 0.1).astype(a.dtype)
     return a
 
 

@@ -1213,3 +1213,188 @@ def test_train_launcher_crash_restart_on_the_card(cuda, tmp_path):
                                         "--fail-at-step", "7"])
     assert clean[-1][0] == crashed[-1][0] == 11
     assert crashed[-1][1] == pytest.approx(clean[-1][1], rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the MoE, Mamba-hybrid and RWKV families on the card
+# ---------------------------------------------------------------------------
+
+def _card_hybrid_config(arch, dtype):
+    """A family's reduced config with the kernels' head size where it has
+    attention (4 query heads, 2 KV heads, head_dim 128); Jamba keeps one
+    period (8 layers)."""
+    from repro_torch.configs import CONFIGS
+
+    cfg = CONFIGS[arch].reduced()
+    if arch == "jamba-v0.1-52b":
+        cfg = dataclasses.replace(cfg, n_layers=8)
+    if arch != "rwkv6-3b":
+        cfg = dataclasses.replace(cfg, n_heads=4, n_kv_heads=2,
+                                  head_dim=128)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()]) \
+        if t.is_floating_point() else t
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_hybrid_kernel_path_matches_the_plain_path(cuda, dtype):
+    """Jamba's period on the card: a 256-token prompt (the Mamba scan
+    over two chunks, the flash kernel in the attention layer, the MoE
+    layers) and teacher-forced decode steps (the paged kernel) against
+    the plain attention on the same card, within the reference's cache
+    bar (bfloat16) or rtol 1e-4 / atol 1e-5 (float32); flash once a
+    prompt and paged once a step in the one attention layer."""
+    from repro_torch.models import registry
+
+    cfg = _card_hybrid_config("jamba-v0.1-52b", dtype)
+    api = registry.get_model(cfg)
+    params = api.init(torch.Generator(device=cuda).manual_seed(6), cuda)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (2, 262)).astype(np.int32)).to(cuda)
+    tol = dict(rtol=0.08, atol=0.08) if dtype == "bfloat16" else \
+        dict(rtol=1e-4, atol=1e-5)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for kern in (True, False):
+        reset_launch_counts()
+        logits, cache = api.prefill(params, {"tokens": toks[:, :256]}, 272,
+                                    use_kernels=kern)
+        out = [logits[:, -1]]
+        for t in range(256, 262):
+            step, cache = api.decode_step(params, cache, toks[:, t:t + 1],
+                                          use_kernels=kern)
+            out.append(step[:, 0])
+        torch.cuda.synchronize()
+        runs[kern] = (torch.stack(out, 1).float(), launch_counts())
+    got, counts = runs[True]
+    want, plain_counts = runs[False]
+    assert torch.isfinite(got).all()
+    assert counts["flash_attention"] == 1
+    assert counts["paged_attention"] == 6
+    assert sum(plain_counts.values()) == 0
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "arctic-480b",
+                                  "kimi-k2-1t-a32b", "rwkv6-3b"])
+def test_hybrid_family_on_the_card_matches_the_cpu(cuda, arch):
+    """float32, TF32 off, the same parameters: the plain path's forward,
+    a 256-token prompt (RWKV's chunked wkv, two Mamba chunks) and four
+    decode steps on the card against the CPU: logits within rtol 1e-4 /
+    atol 1e-4, the MoE aux loss within rtol 1e-5."""
+    from repro_torch.models import registry, transformer
+    from repro_torch.tree import tree_map
+
+    cfg = _card_hybrid_config(arch, "float32")
+    api = registry.get_model(cfg)
+    p_cpu = api.init(torch.Generator().manual_seed(8), "cpu")
+    p_dev = tree_map(lambda t: t.to(cuda), p_cpu)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (2, 260)).astype(np.int32))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for where, p in (("cpu", p_cpu), ("card", p_dev)):
+        d = cuda if where == "card" else torch.device("cpu")
+        x, _, aux = transformer.forward(p, cfg, tokens=toks[:, :32].to(d),
+                                        use_kernels=False)
+        logits, cache = api.prefill(p, {"tokens": toks[:, :256].to(d)}, 272,
+                                    use_kernels=False)
+        out = [logits[:, -1]]
+        for t in range(256, 260):
+            step, cache = api.decode_step(p, cache, toks[:, t:t + 1].to(d),
+                                          use_kernels=False)
+            out.append(step[:, 0])
+        res[where] = ((x @ transformer.head_matrix(p, cfg)).float().cpu(),
+                      torch.stack(out, 1).float().cpu(), float(aux))
+    for a, b in zip(res["card"][:2], res["cpu"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert res["card"][2] == pytest.approx(res["cpu"][2], rel=1e-5)
+
+
+def test_hybrid_routing_on_the_card_equals_the_cpu(cuda):
+    """`moe.route` on the same float32 probabilities, ties and a capacity
+    of 1 included: top_e, the order, keep, slots and tokens equal."""
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(10)
+    cases = [(torch.softmax(torch.from_numpy(rng.normal(
+        size=(512, 16)).astype(np.float32)), -1), 2, 80),
+        (torch.full((8, 16), 1 / 16), 2, 1),
+        (torch.softmax(torch.from_numpy(rng.integers(0, 3, (64, 8)).astype(
+            np.float32)), -1), 2, 3)]
+    for probs, k, cap in cases:
+        a = moe.route(probs, k, cap)
+        b = moe.route(probs.to(cuda), k, cap)
+        for name in ("top_e", "order", "keep", "slot", "st", "pos_in_e"):
+            assert torch.equal(getattr(a, name), getattr(b, name).cpu()), \
+                name
+
+
+def test_hybrid_decode_replays_bit_for_bit(cuda):
+    """Jamba's period in bfloat16 served on the card: after a few
+    requests, a decode step replayed from the same cache gives the same
+    logits and cache bit for bit (the MoE combine adds in a fixed
+    order; no float atomics), and the trace of a step holds no
+    scatter_add / index_add kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import registry
+    from repro_torch.serve import Engine, EngineConfig, Request
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = _card_hybrid_config("jamba-v0.1-52b", "bfloat16")
+    params = registry.get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(11), cuda)
+    eng = Engine(cfg, params, EngineConfig(max_batch=8, max_context=128,
+                                           block_size=16))
+    rng = np.random.default_rng(12)
+    eng.run([Request(req_id=i, prompt=rng.integers(1, cfg.vocab, 20 + 7 * i)
+                     .tolist(), max_new_tokens=4) for i in range(6)])
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (8, 1)).astype(
+        np.int32)).to(cuda)
+    snap = tree_map(torch.clone, eng.cache)
+    out = []
+    for _ in range(2):
+        eng.cache = tree_map(torch.clone, snap)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            logits = eng.decode(toks)
+            torch.cuda.synchronize()
+        out.append((logits, leaves(tree_map(torch.clone, eng.cache))))
+    assert torch.equal(_bits(out[0][0]), _bits(out[1][0]))
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(_bits(a), _bits(b))
+    names = [ev.key.lower() for ev in prof.key_averages()]
+    assert names and not [n for n in names
+                          if "scatter_add" in n or "index_add" in n]
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-3b"])
+def test_hybrid_engine_serves_on_the_card(cuda, arch):
+    """float32 on the card: the engine's greedy tokens on the kernel path
+    equal the plain path's (RWKV has no attention: its two runs are the
+    same path), prompts of 10-300 tokens, every budget met."""
+    from repro_torch.models import registry
+    from repro_torch.serve import Engine, EngineConfig, Request
+
+    cfg = _card_hybrid_config(arch, "float32")
+    params = registry.get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(13), cuda)
+    rng = np.random.default_rng(14)
+    lengths = [(10, 5), (300, 4), (37, 6), (129, 3)]
+    prompts = [rng.integers(1, cfg.vocab, p).tolist() for p, _ in lengths]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for kern in (True, False):
+        eng = Engine(cfg, params, EngineConfig(max_batch=3, max_context=512,
+                                               block_size=16),
+                     use_kernels=kern)
+        out[kern] = eng.run([Request(req_id=i, prompt=list(p),
+                                     max_new_tokens=m)
+                             for i, (p, (_, m)) in enumerate(
+                                 zip(prompts, lengths))])
+    assert out[True] == out[False]
+    assert {r: len(v) for r, v in out[True].items()} == \
+        {i: m for i, (_, m) in enumerate(lengths)}

@@ -120,11 +120,28 @@ SLICE_MODULES = {
         "init_attention", "init_mlp", "dense_init", "embed_init",
         "attn_chunk_for", "dtype_of"),
     "repro_torch.models.transformer": (
-        "layer_layout", "split_layout", "init_params", "init_cache",
-        "slice_cache", "merge_cache", "forward", "head_matrix", "loss_fn",
-        "prefill", "decode_step"),
+        "layer_layout", "split_layout", "init_block", "apply_block",
+        "init_block_cache", "init_params", "init_cache", "slice_cache",
+        "merge_cache", "forward", "head_matrix", "loss_fn", "prefill",
+        "decode_step"),
     "repro_torch.models.registry": ("ModelAPI", "get_model",
                                     "random_train_batch"),
+    # the MoE, Mamba and RWKV blocks and the knobs
+    "repro_torch.models.tuning": ("set_profile", "set_knob", "snapshot",
+                                  "_PROFILES", "rwkv_chunked_scan",
+                                  "mamba_fused_params"),
+    "repro_torch.models.moe": ("init_moe", "apply_moe", "apply_moe_auto",
+                               "apply_moe_sharded", "apply_moe_a2a",
+                               "apply_moe_decode", "dispatch_structure_demo",
+                               "route"),
+    "repro_torch.models.mamba": ("SCAN_CHUNK", "init_mamba", "_causal_conv",
+                                 "_ssm_params", "apply_mamba",
+                                 "init_mamba_state"),
+    "repro_torch.models.rwkv6": ("init_rwkv_time", "init_rwkv_channel",
+                                 "_group_norm", "_token_shift",
+                                 "apply_rwkv_time", "_wkv_subchunk",
+                                 "_wkv_chunked", "apply_rwkv_channel",
+                                 "init_rwkv_state", "_LW_CLIP"),
     "repro_torch.models.convert": ("params_from_reference",
                                    "params_to_reference",
                                    "opt_state_from_reference"),

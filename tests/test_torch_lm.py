@@ -28,7 +28,9 @@ from repro_torch.models import transformer as ttr
 
 DENSE = ["granite-8b", "stablelm-1.6b", "starcoder2-15b", "qwen2-72b",
          "chameleon-34b"]
-UNPORTED = sorted(set(CONFIGS) - set(DENSE))
+#: the MoE, hybrid and RWKV families have their parity cases in
+#: `tests/test_torch_lm_families.py`; only the encoder-decoder waits
+UNPORTED = ["whisper-large-v3"]
 DTYPES = ["float32", "bfloat16"]
 
 

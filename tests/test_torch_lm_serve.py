@@ -242,7 +242,7 @@ def test_launcher_defaults_to_the_card():
 
 
 def test_engine_refuses_unported_configs():
-    cfg = CONFIGS["jamba-v0.1-52b"].reduced()
+    cfg = CONFIGS["whisper-large-v3"].reduced()
     with pytest.raises(NotImplementedError, match="A11, slice 3"):
         make_engine(cfg, device="cpu")
     dense = CONFIGS["granite-8b"].reduced()
