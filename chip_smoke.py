@@ -47,9 +47,10 @@ kernels/csrc/` and then runs these phases, one output line per step:
            `tc_bound_ms` (one pass on the tensor cores) beside it, and
            each flash cell's achieved TFLOP/s (those flops over
            kernel_ms);
-  lm       Granite-8B at its published size (configs/granite_8b.py: 36
-           layers, d 4096, 32/8 heads, bfloat16; seeded weights on the
-           card) served by `serve.Engine` (8 slots, 1024-token context,
+  lm       Granite-8B at its published widths with 18 of its 36 layers
+           (configs/granite_8b.py: d 4096, 32/8 heads, bfloat16; seeded
+           weights on the card; the cut, with RWKV's, pays for the
+           lm_encdec phase) served by `serve.Engine` (8 slots, 1024-token context,
            16-token blocks) over 16 seeded requests (prompts of 16-600
            tokens, budgets of 8-48): every prompt through the flash
            kernel, every decode step through the paged kernel over the
@@ -73,8 +74,9 @@ kernels/csrc/` and then runs these phases, one output line per step:
            one period of its 32 layers (8: Mamba x4, attention, Mamba
            x3; a 16-expert top-2 MoE in the odd layers; d 4096, 32/8
            heads of 128, d_state 16, vocab 65,536, bfloat16, seeded
-           weights on the card, 26.5 GB) and RWKV6-3B uncut
-           (configs/rwkv6_3b.py: 32 layers, d 2560, 40 heads of 64),
+           weights on the card, 26.5 GB) and RWKV6-3B at full width
+           with 8 of its 32 layers (configs/rwkv6_3b.py: d 2560, 40
+           heads of 64; the cut pays for the lm_encdec phase),
            each served by `serve.Engine` like Granite above (16 seeded
            requests, prompts 16-600, budgets 8-48; counts set to 0 just
            before and read just after).  Jamba: one flash launch a
@@ -93,6 +95,37 @@ kernels/csrc/` and then runs these phases, one output line per step:
            card against the CPU for a 512-token prompt (the chunked wkv)
            and a 100-token one (the per-token recurrence), each with 8
            decode steps, logits within rtol = atol = 1e-3;
+  lm_encdec Whisper-large-v3 uncut (configs/whisper_large_v3.py: 32
+           encoder and 32 decoder layers, d 1280, 20 heads of 64, d_ff
+           5120, vocab 51,866, bfloat16; 1,535,383,040 seeded parameters
+           on the card) through `registry.get_model`: first each kernel
+           against its plain version at the phase's shapes, one bfloat16
+           ulp and two launches bit-identical -- flash 160 x 1500 x 1500
+           x 64 not causal (blocks 125), 160 x 228 x 1500 not causal and
+           160 x 228 x 228 causal (blocks 114), paged cross (B 8, H =
+           KVH 20, 1,500 keys as 4-token blocks) and self (448-token
+           cache, 16-token blocks) -- each timed like Granite's beside
+           its bound and SDPA's time.  Then 16 seeded clips of 1,500
+           frame embeddings (the frontend stays a stub, as in the
+           reference) in two batches of 8: A the 4-token start sequence
+           and 48 greedy decode steps, B a 228-token prompt with
+           previous-text conditioning and 32 steps; one `prefill(max_len
+           =448)` a batch, then `decode_step` calls.  Counts set to 0
+           just before and read just after: 96 flash launches a prefill
+           (32 encoder, 32 prompt self, 32 prompt cross) and 64 paged a
+           decode step (32 self, 32 cross), nothing else.  Prints
+           tokens/s, encode and prefill ms a batch, decode host ms a
+           step; a torch.profiler window of 5 decode steps (device ms
+           split into the cross K/V GEMMs, which a step recomputes from
+           the encoder's states, against their 2.52 TFLOP at 989
+           TFLOP/s, other GEMMs, paged and other; busy share; paged
+           records, no `einsum` or SDPA op); three decode steps replayed
+           from one cache twice (logits and every cache leaf bit for
+           bit); 4 + 4 layers in float32 (TF32 off), kernel path against
+           plain path teacher-forced (batch B's prefill and 16 steps)
+           within rtol = atol = 1e-3; and the whole model's bfloat16
+           kernel path within 1.1x the plain path's distance from the
+           float32 plain path;
   train    StableLM-1.6B (configs/stablelm_1_6b.py, the reference
            launcher's default: 24 layers, d 2048, 32 heads, vocab
            100,352, bfloat16) trained at its published size through the
@@ -1675,7 +1708,8 @@ def run_attention(args, dev, K):
 # lm: Granite-8B served through the decode engine
 # ---------------------------------------------------------------------------
 
-LM_ARCH = "granite-8b"              # served at its published size
+LM_ARCH = "granite-8b"              # published widths, half the depth
+LM_LAYERS = 18                      # of 36: pays, with RWKV's, for lm_encdec
 LM_SEED = 23                        # weights and requests
 LM_ENGINE = dict(max_batch=8, max_context=1024, block_size=16)
 LM_REQUESTS, LM_PROMPT, LM_NEW = 16, (16, 600), (8, 48)
@@ -1752,8 +1786,8 @@ def lm_engine_class(Engine, dev):
 
 
 def run_lm(args, dev, K, errs, times):
-    """Serve Granite-8B (its reduced config on the CPU) through the
-    port's engine: prefill on the flash kernel, decode on the paged
+    """Serve Granite-8B at full width with 18 of its 36 layers (its
+    reduced config on the CPU) through the port's engine: prefill on the flash kernel, decode on the paged
     kernel.  Checks the requests, the launches and the trace, the kernel
     path against the plain path on teacher-forced steps, each kernel
     against its plain version at the phase's shapes; times both.
@@ -1763,15 +1797,16 @@ def run_lm(args, dev, K, errs, times):
     from repro_torch.serve import Engine, EngineConfig, Request
     from repro_torch.tree import leaves, tree_map
 
-    cfg = get_config(LM_ARCH)
-    if args.cpu_rehearsal:
-        cfg = cfg.reduced()
+    full = get_config(LM_ARCH)
+    cfg = full.reduced() if args.cpu_rehearsal else full
+    cfg = dataclasses.replace(cfg, n_layers=min(LM_LAYERS, cfg.n_layers))
     t0 = time.perf_counter()
     params = registry.get_model(cfg).init(
         torch.Generator(device=dev).manual_seed(LM_SEED), dev)
     sync(dev)
     n_params = sum(t.numel() for t in leaves(params))
-    log(f"lm model {cfg.name}: layers={cfg.n_layers} d={cfg.d_model} "
+    log(f"lm model {cfg.name}: layers={cfg.n_layers} of {full.n_layers} "
+        f"d={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} "
         f"vocab={cfg.vocab} {cfg.dtype} params={n_params} "
         f"({n_params * 2 / 2 ** 30:.2f} GiB; param_count()="
@@ -2027,7 +2062,8 @@ HYBRID_SEED = 25                    # weights and requests
 HYBRID_DISAGREE = 0.01              # forced rows whose routing may differ
 HYBRID_REPLAY = 3                   # tokens of the bit-identical replay
 HYBRID_WINDOW = 5                   # decode steps in the profiler window
-RWKV_ARCH = "rwkv6-3b"              # served uncut
+RWKV_ARCH = "rwkv6-3b"              # full width, a quarter of the depth
+RWKV_LAYERS = 8                     # of 32: pays for the lm_encdec phase
 RWKV_CMP = (2, (512, 100), 8)       # card vs CPU: layers, prompts, steps
 ATOMIC_NAMES = ("scatter_add", "index_add", "atomic")
 
@@ -2162,8 +2198,9 @@ def decode_window(tag, eng, dev, toks) -> dict:
 def run_lm_hybrid(args, dev, K):
     """Serve Jamba-v0.1 at full width with one period of depth (8
     layers: flash prefill and paged decode in its attention layer, the
-    Mamba scan in seven, a 16-expert top-2 MoE in four) and RWKV6-3B
-    uncut through the port's engine; their reduced configs on the CPU.
+    Mamba scan in seven, a 16-expert top-2 MoE in four) and RWKV6-3B at
+    8 of its 32 layers through the port's engine; their reduced configs
+    on the CPU.
     Checks the requests, the launches (one flash a prefill, one paged a
     decode step), a bit-identical replay of a Jamba decode step with no
     atomic kernel on its path, the float32 kernel path against the plain
@@ -2375,15 +2412,18 @@ def run_lm_hybrid(args, dev, K):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # -- RWKV6-3B: served uncut ---------------------------------------------
+    # -- RWKV6-3B: served at full width, 8 of its 32 layers ----------------
     rfull = get_config(RWKV_ARCH)
-    rcfg = rfull.reduced() if args.cpu_rehearsal else rfull
+    rbase = rfull.reduced() if args.cpu_rehearsal else rfull
+    rcfg = dataclasses.replace(rbase, n_layers=min(RWKV_LAYERS,
+                                                   rbase.n_layers))
     t0 = time.perf_counter()
     rparams = registry.get_model(rcfg).init(
         torch.Generator(device=dev).manual_seed(HYBRID_SEED + 6), dev)
     sync(dev)
     rn = sum(t.numel() for t in leaves(rparams))
-    log(f"rwkv model {rcfg.name}: layers={rcfg.n_layers} d={rcfg.d_model} "
+    log(f"rwkv model {rcfg.name}: layers={rcfg.n_layers} of "
+        f"{rfull.n_layers} d={rcfg.d_model} "
         f"heads={rcfg.d_model // rcfg.hd}x{rcfg.hd} d_ff={rcfg.d_ff} "
         f"vocab={rcfg.vocab} {rcfg.dtype} params={rn} "
         f"({rn * 2 / 2 ** 30:.2f} GiB; param_count()="
@@ -2444,6 +2484,435 @@ def run_lm_hybrid(args, dev, K):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {k: counts.get(k, 0) + rcounts.get(k, 0) for k in K.KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# lm_encdec: Whisper-large-v3 through the model API
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-large-v3"    # uncut: 32 + 32 layers
+ENCDEC_SEED = 26                    # weights, clips and tokens
+ENCDEC_CLIPS = 8                    # clips a batch (two batches)
+ENCDEC_FRAMES = 1500                # 30 s: 3,000 mel frames, stride 2
+ENCDEC_STEPS = (48, 32)             # greedy decode steps of batches A, B
+ENCDEC_F32_LAYERS = 4               # encoder and decoder layers, float32
+ENCDEC_FORCED = 16                  # teacher-forced decode steps
+ENCDEC_REPLAY = 3                   # steps of the bit-identical replay
+ENCDEC_WINDOW = 5                   # decode steps in the profiler window
+#: openai/whisper's multilingual tokenizer as large-v3 numbers it (100
+#: languages): <|startoftranscript|> <|en|> <|transcribe|>
+#: <|notimestamps|> is decoding.py's start sequence without timestamps,
+#: <|startofprev|> opens the previous text's conditioning
+WHISPER_SOT = (50258, 50259, 50360, 50364)
+WHISPER_SOT_PREV = 50362
+WHISPER_TEXT = 50257                # text ids lie below <|endoftext|>
+
+
+def encdec_prompts(cfg, rng) -> dict:
+    """The two batches' prompts, as decoding.py builds them: A the start
+    sequence alone; B <|startofprev|>, the last decoder_len // 2 - 1
+    tokens of the previous text (seeded text ids) and the start
+    sequence (228 tokens at decoder_len 448)."""
+    vocab = min(cfg.vocab, WHISPER_TEXT)
+    sot = [t % cfg.vocab for t in WHISPER_SOT]
+    prev = rng.integers(1, vocab, (ENCDEC_CLIPS, cfg.decoder_len // 2 - 1))
+    a = np.tile(np.array(sot, np.int64), (ENCDEC_CLIPS, 1))
+    b = np.concatenate([np.full((ENCDEC_CLIPS, 1),
+                                WHISPER_SOT_PREV % cfg.vocab), prev, a], 1)
+    return {"A": a.astype(np.int32), "B": b.astype(np.int32)}
+
+
+def run_lm_encdec(args, dev, K, errs, times):
+    """Whisper-large-v3 uncut (its reduced config on the CPU) through
+    `registry.get_model`: 16 seeded clips of 1,500 frame embeddings in
+    two batches of 8, each one `prefill(max_len=448)` -- the encoder,
+    the prompt's self- and cross-attention on the flash kernel -- then
+    greedy `decode_step` calls whose self- and cross-attention run the
+    paged kernel.  Checks each kernel against its plain version at the
+    phase's shapes first, then the launches, a decode window's trace,
+    a bit-identical replay, the float32 kernel path against the plain
+    path at 4 + 4 layers and the bfloat16 paths against float32.
+    Returns the launch counts of the served path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, registry, whisper
+    from repro_torch.tree import leaves, tree_map
+
+    t_lap = [time.perf_counter()]
+
+    def lap():
+        t, t_lap[0] = t_lap[0], time.perf_counter()
+        return t_lap[0] - t
+
+    full = get_config(ENCDEC_ARCH)
+    cfg = full.reduced() if args.cpu_rehearsal else full
+    n_frames = 150 if args.cpu_rehearsal else ENCDEC_FRAMES
+    api = registry.get_model(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(ENCDEC_SEED),
+                      dev)
+    sync(dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"encdec model {cfg.name}: encoder layers={cfg.n_encoder_layers} "
+        f"decoder layers={cfg.n_layers} d={cfg.d_model} heads="
+        f"{cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} vocab="
+        f"{cfg.vocab} decoder_len={cfg.decoder_len} {cfg.dtype} params="
+        f"{n_params} ({n_params * 2 / 2 ** 30:.2f} GiB; param_count()="
+        f"{cfg.param_count():.0f}, which counts tok_embed twice) frames="
+        f"{n_frames} [{lap():.1f} s]")
+    if not args.cpu_rehearsal:
+        check(n_params == 1_535_383_040,
+              f"encdec: {n_params} parameters, not Whisper-large-v3's "
+              "1,535,383,040")
+
+    rng = np.random.default_rng(ENCDEC_SEED)
+    bf = params["tok_embed"].dtype
+    clips = torch.from_numpy(rng.normal(
+        size=(2, ENCDEC_CLIPS, n_frames, cfg.d_model)).astype(
+            np.float32)).to(dev, bf)
+    prompts = encdec_prompts(cfg, rng)
+    max_len = cfg.decoder_len
+    # positions stay below decoder_len (the reduced config's 32 cuts the
+    # steps on the CPU)
+    steps = {name: min(n, max_len - 1 - prompts[name].shape[1])
+             for name, n in zip("AB", ENCDEC_STEPS)}
+    batches = {name: {"frames": clips[i],
+                      "tokens": torch.from_numpy(prompts[name]).to(dev)}
+               for i, name in enumerate(("A", "B"))}
+
+    # -- each kernel against its plain version at the phase's shapes -----
+    b, h, kvh, hd = ENCDEC_CLIPS, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    t_b = prompts["B"].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(ENCDEC_SEED + 1)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    reps = LM_TIME_REPS if dev.type == "cuda" else args.reps
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bh = b * h
+    enc_q = randn((bh, n_frames, hd))
+    enc_k, enc_v = randn((bh, n_frames, hd)), randn((bh, n_frames, hd))
+    pq, pk, pv = (randn((bh, t_b, hd)) for _ in range(3))
+    blk_f, blk_t = common.flash_block(n_frames), common.flash_block(t_b)
+    flash_cases = (
+        ("encoder", enc_q, enc_k, enc_v, False, (blk_f, blk_f)),
+        ("cross", pq, enc_k, enc_v, False, (blk_t, blk_f)),
+        ("self", pq, pk, pv, True, (blk_t, blk_t)))
+    for tag, q, k, v, causal, (bq, bk) in flash_cases:
+        def kern(q=q, k=k, v=v, causal=causal, bq=bq, bk=bk):
+            return K.flash_attention(q, k, v, causal, None, bq, bk)
+
+        def plain(q=q, k=k, v=v, causal=causal, bq=bq, bk=bk):
+            return K.flash_attention_plain(q, k, v, causal, None, bq, bk)
+
+        def library(q=q, k=k, v=v, causal=causal):
+            return sdpa(q[None], k[None], v[None], is_causal=causal)
+
+        label = (f"encdec {tag} {bh}x{q.shape[1]}x{k.shape[1]}x{hd} "
+                 f"{'causal' if causal else 'not causal'} blocks {bq}x{bk}")
+        got = kern()
+        attn_compare(errs, "flash_attention", label, got, plain(), "ulp")
+        same = torch.equal(bits(got), bits(kern()))
+        check(same, f"attention flash_attention {label}: two launches "
+              "differ")
+        key = f"flash_attention encdec {tag}"
+        time_entry(times, key, kern, plain, library,
+                   2 * (q.numel() + k.numel()) * q.element_size(),
+                   4 * hd * bh * visible_pairs(q.shape[1], k.shape[1],
+                                               causal, None), bf,
+                   f"{label}, two launches bit-identical {same}", reps, dev)
+        lm_traced(times[key], key, kern, library, reps, dev)
+    del enc_q, pq, pk, pv
+
+    # paged: cross over the frames as 4-token blocks, every length the
+    # frames; self over the 448-token cache as 16-token blocks
+    cross_k, cross_v = randn((b, n_frames, kvh, hd)), randn((b, n_frames,
+                                                             kvh, hd))
+    self_len = np.random.default_rng(ENCDEC_SEED + 2).integers(
+        1, max_len + 1, b)
+    self_len[0] = max_len
+    self_k, self_v = randn((b, max_len, kvh, hd)), randn((b, max_len, kvh,
+                                                          hd))
+    qd = randn((b, h, hd))
+    for tag, ck, cv, lens in (
+            ("cross", cross_k, cross_v, np.full(b, n_frames)),
+            ("self", self_k, self_v, self_len)):
+        s_max = ck.shape[1]
+        idx = common.kv_index(b, s_max, dev)
+        lengths = torch.from_numpy(lens.astype(np.int32)).to(dev)
+        pool = (b * s_max // idx.block, idx.block, kvh, hd)
+        pargs = (qd, ck.view(pool), cv.view(pool), idx.tables, lengths)
+
+        def kern(pargs=pargs):
+            return K.paged_attention(*pargs)
+
+        def plain(pargs=pargs):
+            return K.paged_attention_plain(*pargs)
+
+        mask = (torch.arange(s_max, device=dev)[None, :]
+                < lengths[:, None].long())[:, None, None, :]
+        kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+
+        def library(kt=kt, vt=vt, mask=mask):
+            return sdpa(qd[:, :, None], kt, vt, attn_mask=mask,
+                        enable_gqa=True)
+
+        label = (f"encdec {tag} B {b} H {h} KVH {kvh} S {s_max} block "
+                 f"{idx.block} lengths {int(lens.min())}..{int(lens.max())}")
+        got, want = kern(), plain()
+        attn_compare(errs, "paged_attention", label, got, want, "ulp")
+        same = torch.equal(bits(got), bits(kern()))
+        check(same, f"attention paged_attention {label}: two launches "
+              "differ")
+        lib_err = float((library()[:, :, 0].float() - want.float()
+                         ).abs().max())
+        el = qd.element_size()
+        walked = -(-lens.astype(np.int64) // idx.block)
+        key = f"paged_attention encdec {tag}"
+        time_entry(times, key, kern, plain, library,
+                   2 * qd.numel() * el + 2 * int(lens.sum()) * kvh * hd * el
+                   + 4 * int(walked.sum()) + 4 * b,
+                   4 * hd * h * int(lens.sum()), bf,
+                   f"{label}, two launches bit-identical {same}; library: "
+                   f"SDPA with a length mask, max_abs_err {lib_err:.3g} vs "
+                   "plain", reps, dev)
+        lm_traced(times[key], key, kern, library, reps, dev,
+                  ("paged_split_kernel", "paged_merge_kernel"))
+    del cross_k, cross_v, self_k, self_v, qd, enc_k, enc_v
+    log(f"encdec kernels vs plain [{lap():.1f} s]")
+
+    # -- the served path ------------------------------------------------------
+    # one prefill and step first load the kernels and the GEMMs' plans;
+    # each batch's encoder is then timed alone, outside the counted run
+    with torch.no_grad():
+        _, c = api.prefill(params, batches["A"], max_len)
+        api.decode_step(params, c, batches["A"]["tokens"][:, :1])
+        del c
+        enc_ms = {}
+        for name, batch in batches.items():
+            sync(dev)
+            t0 = time.perf_counter()
+            whisper.encode(params, cfg, batch["frames"], remat="none")
+            sync(dev)
+            enc_ms[name] = 1e3 * (time.perf_counter() - t0)
+        sync(dev)
+        K.reset_launch_counts()
+        prefill_ms, host, caches, n_tok = {}, [], {}, 0
+        t_run = time.perf_counter()
+        for name, batch in batches.items():
+            t0 = time.perf_counter()
+            logits, cache = api.prefill(params, batch, max_len)
+            sync(dev)
+            prefill_ms[name] = 1e3 * (time.perf_counter() - t0)
+            tok = logits.argmax(-1).to(torch.int32)
+            for _ in range(steps[name]):
+                t0 = time.perf_counter()
+                logits, cache = api.decode_step(params, cache, tok)
+                tok = logits.argmax(-1).to(torch.int32)
+                host.append(time.perf_counter() - t0)
+                n_tok += b
+            caches[name] = (cache, tok)
+        sync(dev)
+        wall = time.perf_counter() - t_run
+        counts = K.launch_counts()
+    n_steps = sum(steps.values())
+    host = 1e3 * np.array(host)
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+    log(f"encdec launches {json.dumps(counts)}")
+    log(f"encdec run: {len(batches)} batches of {b} clips x {n_frames} "
+        f"frames, prompts {[p.shape[1] for p in prompts.values()]} tokens, "
+        f"{steps['A']} + {steps['B']} greedy decode steps: tokens={n_tok} "
+        f"wall_s={wall:.3f} tokens_per_s={n_tok / wall:.1f}; encode ms "
+        + " ".join(f"{k}={v:.2f}" for k, v in enc_ms.items())
+        + "; prefill ms (encoder and prompt) "
+        + " ".join(f"{k}={v:.2f}" for k, v in prefill_ms.items())
+        + f"; decode host ms a step median={np.median(host):.3f} "
+        f"p90={np.percentile(host, 90):.3f} min={host.min():.3f} "
+        f"steps={host.size}")
+    if dev.type == "cuda":
+        want = dict.fromkeys(K.KERNELS, 0)
+        want["flash_attention"] = (n_enc + 2 * n_dec) * len(batches)
+        want["paged_attention"] = 2 * n_dec * n_steps
+        check(counts == want,
+              f"encdec: launches {counts}, not {n_enc + 2 * n_dec} flash a "
+              f"prefill and {2 * n_dec} paged a decode step ({want})")
+    pos = {k: c["pos"].tolist() for k, (c, _) in caches.items()}
+    check(all(p == [prompts[k].shape[1] + steps[k]] * b
+              for k, p in pos.items()) and all(
+                  p[0] < cfg.decoder_len for p in pos.values()),
+          f"encdec: final positions {pos}")
+    check(all(bool(torch.isfinite(c["kv_stack"]["kv"]["k"]).all())
+              for c, _ in caches.values()), "encdec: a cache is not finite")
+    log(f"encdec served [{lap():.1f} s]")
+
+    # -- a bit-identical replay and the decode window ------------------------
+    cache, tok = caches.pop("B")
+    del caches
+    with torch.no_grad():
+        snap = tree_map(torch.clone, cache)
+        runs = []
+        for _ in range(2):
+            c, t, rows = tree_map(torch.clone, snap), tok, []
+            for _ in range(ENCDEC_REPLAY):
+                logits, c = api.decode_step(params, c, t)
+                t = logits.argmax(-1).to(torch.int32)
+                rows.append(logits)
+            sync(dev)
+            runs.append((torch.stack(rows), c))
+        same = torch.equal(bits(runs[0][0]), bits(runs[1][0])) and all(
+            torch.equal(bits(x) if x.is_floating_point() else x,
+                        bits(y) if y.is_floating_point() else y)
+            for x, y in zip(leaves(runs[0][1]), leaves(runs[1][1])))
+        check(same, "encdec replay: two replays of the decode steps differ")
+        log(f"encdec replay: {ENCDEC_REPLAY} decode steps of {b} clips from "
+            f"one cache, twice: logits and every cache leaf bit-identical "
+            f"{same}")
+        del runs
+        encdec_window(cfg, api, params, snap, tok, dev, b * n_frames)
+    del cache, snap
+    log(f"encdec replay and window [{lap():.1f} s]")
+
+    # -- float32: the kernel path against the plain path at 4 + 4 layers ---
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nl = min(ENCDEC_F32_LAYERS, cfg.n_layers)
+    c32 = dataclasses.replace(cfg, dtype="float32", n_layers=nl,
+                              n_encoder_layers=nl)
+    a32 = registry.get_model(c32)
+    p32 = a32.init(torch.Generator(device=dev).manual_seed(ENCDEC_SEED + 3),
+                   dev)
+    forced = torch.from_numpy(np.random.default_rng(ENCDEC_SEED + 4)
+                              .integers(1, min(cfg.vocab, WHISPER_TEXT),
+                                        (b, ENCDEC_FORCED, 1))
+                              .astype(np.int32)).to(dev)
+    batch_b = batches["B"]
+
+    def teacher_forced(a, p, frames, kern):
+        with torch.no_grad():
+            logits, c = a.prefill(p, {"frames": frames,
+                                      "tokens": batch_b["tokens"]}, max_len,
+                                  use_kernels=kern)
+            rows = [logits.float()]
+            for t in range(ENCDEC_FORCED):
+                logits, c = a.decode_step(p, c, forced[:, t], use_kernels=kern)
+                rows.append(logits.float())
+        return torch.cat(rows, 1)
+
+    f_frames = batch_b["frames"].float()
+    K.reset_launch_counts()
+    got = teacher_forced(a32, p32, f_frames, True)
+    f_counts = K.launch_counts()
+    want = teacher_forced(a32, p32, f_frames, False)
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and bool(torch.allclose(
+        got, want, rtol=LM_F32_TOL, atol=LM_F32_TOL))
+    check(ok, f"encdec teacher-forced float32: the kernel path differs from "
+              f"the plain path (max abs err {err:.3g}, rtol=atol "
+              f"{LM_F32_TOL})")
+    if dev.type == "cuda":
+        check(f_counts["flash_attention"] == 3 * nl
+              and f_counts["paged_attention"] == 2 * nl * ENCDEC_FORCED,
+              f"encdec teacher-forced float32: launches {f_counts}")
+    log(f"encdec teacher-forced float32 ({nl} + {nl} layers, TF32 off): "
+        f"batch B's prefill ({t_b} tokens) + {ENCDEC_FORCED} decode steps: "
+        f"kernels vs plain max_abs_err={err:.4g} (rtol=atol {LM_F32_TOL}) "
+        f"ok={ok}; max|logit|={float(want.abs().max()):.3g} "
+        f"[{lap():.1f} s]")
+    del p32, got, want
+
+    # -- bfloat16: both paths against the whole model in float32 ----------
+    bf16 = {kern: teacher_forced(api, params, batch_b["frames"], kern)
+            for kern in (True, False)}
+    p32 = tree_map(lambda t: t.float(), params)
+    truth = teacher_forced(registry.get_model(dataclasses.replace(
+        cfg, dtype="float32")), p32, f_frames, False)
+    del p32
+    dist = {kern: (bf16[kern] - truth).abs() for kern in (True, False)}
+    bar = float((bf16[True] - bf16[False]).abs().max())
+    mean_ratio = float(dist[True].mean() / dist[False].mean())
+    max_ratio = float(dist[True].max() / dist[False].max())
+    ok16 = bool(torch.isfinite(bf16[True]).all()) \
+        and mean_ratio <= LM_BF16_RATIO and max_ratio <= LM_BF16_RATIO
+    check(ok16, f"encdec teacher-forced bfloat16: the kernel path's error "
+                f"against float32 is {mean_ratio:.3f}x (mean) and "
+                f"{max_ratio:.3f}x (max) the plain path's (limit "
+                f"{LM_BF16_RATIO})")
+    log(f"encdec teacher-forced bfloat16 ({cfg.n_encoder_layers} + "
+        f"{cfg.n_layers} layers): kernels vs plain max_abs_err={bar:.4g}; "
+        f"against float32: kernels max {float(dist[True].max()):.4g} mean "
+        f"{float(dist[True].mean()):.4g}, plain max "
+        f"{float(dist[False].max()):.4g} mean {float(dist[False].mean()):.4g}"
+        f" (ratio mean {mean_ratio:.3f} max {max_ratio:.3f}, limit "
+        f"{LM_BF16_RATIO}) ok={ok16}; max|logit|="
+        f"{float(truth.abs().max()):.3g} [{lap():.1f} s]")
+    del bf16, truth, dist, params, clips, batches
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+def encdec_window(cfg, api, params, cache, tok, dev, kv_rows) -> None:
+    """ENCDEC_WINDOW decode steps from `cache` under torch.profiler,
+    nothing else in the window: a step's device ms split into the cross
+    K/V GEMMs (the `aten::mm` calls over the kv_rows encoder rows, read
+    from the trace's shapes), the other GEMMs, paged and other, the
+    busy share and kernels a step; fails unless the paged kernel's
+    records are there and no `einsum` or SDPA op is."""
+    if dev.type != "cuda":
+        log("encdec trace: not measured (no card)")
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    n = ENCDEC_WINDOW
+    c = cache
+    logits, c = api.decode_step(params, c, tok)
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            logits, c = api.decode_step(params, c, tok)
+        sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # one pass over the trace: kernels carry no shapes, so grouping by
+    # shape keeps one entry each, and splits the CPU ops by theirs
+    avgs = prof.key_averages(group_by_input_shape=True)
+    recs, cross_us = {}, 0.0
+    for ev in avgs:
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0 and ev.count and \
+                ev.device_type == torch.autograd.DeviceType.CUDA:
+            cnt, us = recs.get(ev.key, (0, 0.0))
+            recs[ev.key] = (cnt + ev.count, us + t)
+        elif ev.key == "aten::mm" and ev.input_shapes \
+                and ev.input_shapes[0][:1] == [kv_rows]:
+            cross_us += getattr(ev, "device_time_total",
+                                getattr(ev, "cuda_time_total", 0.0))
+    split = {k: v / n for k, v in lm_split(recs).items()}
+    cross = cross_us / 1e3 / n
+    device = sum(split.values())
+    plain = sorted({ev.key for ev in avgs
+                    if any(w in ev.key for w in PLAIN_OPS)})
+    paged = {short_kernel(k): cnt for k, (cnt, _) in recs.items()
+             if "paged_" in k}
+    flops = cfg.n_layers * 2 * 2 * kv_rows * cfg.d_model \
+        * cfg.n_kv_heads * cfg.hd
+    bound = 1e3 * flops / BF16_TC_OPS_PER_S
+    log(f"encdec trace {n} decode steps alone: wall_ms={wall_ms / n:.3f} "
+        f"(profiler on) device_ms={device:.3f} cross_kv_gemm_ms="
+        f"{cross:.3f} other_gemm_ms={split['gemm'] - cross:.3f} paged_ms="
+        f"{split['paged']:.3f} other_ms={split['other']:.3f} flash_ms="
+        f"{split['flash']:.3f} busy_share={device * n / wall_ms:.3f} "
+        f"kernels_a_step={sum(cnt for cnt, _ in recs.values()) / n:.0f}; "
+        f"cross K/V recompute {flops / 1e12:.3f} TFLOP a step, bound "
+        f"{bound:.3f} ms at 989 TFLOP/s ({cross / bound:.2f}x); paged "
+        f"records {paged}; plain ops {plain}")
+    check(bool(recs), "encdec trace: the profiler recorded no device time")
+    check(cross > 0, "encdec trace: no cross K/V GEMM in the window")
+    check(sum(paged.values()) >= 2 * 2 * cfg.n_layers * n,
+          f"encdec trace: {paged} paged records, not 2 a call, 2 calls a "
+          "layer a step")
+    check(not plain, f"encdec trace: plain-path ops {plain} on the kernel "
+          "path")
 
 
 # ---------------------------------------------------------------------------
@@ -4436,6 +4905,16 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
+    # -- lm_encdec: Whisper-large-v3 through the model API ------------------
+    t0 = time.perf_counter()
+    encdec_counts = run_lm_encdec(args, dev, K, attn_errs, lm_times)
+    log(f"lm_encdec phase_s={time.perf_counter() - t0:.1f}")
+    if dev.type == "cuda":
+        log(f"lm_encdec peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
     # -- train: StableLM-1.6B through the port's train step -----------------
     t0 = time.perf_counter()
     train_counts = run_train(args, dev, K)
@@ -4510,7 +4989,8 @@ def main(argv=None) -> int:
         f"{dplain.n_iters}")
     compare_pagerank("dia", dres, dplain)
     phase_counts = {"attention": attn_counts, "lm": lm_counts,
-                    "lm_hybrid": hybrid_counts, "train": train_counts,
+                    "lm_hybrid": hybrid_counts, "lm_encdec": encdec_counts,
+                    "train": train_counts,
                     "main": counts, "dia": dia_counts}
 
     # -- the reordering, per-call and BELL paths ------------------------------

@@ -9,14 +9,18 @@ Conventions (the reference's):
 
 Attention has two routes, chosen by `use_kernels`:
   * the kernels (default): a prompt (s > 1 at cache offset 0, or a
-    forward without a cache) runs `kernels.ops.flash_attention` over the
-    prompt's own keys, KV heads broadcast by `repeat_interleave`; a decode
-    step (s == 1) runs `kernels.ops.paged_attention` over the dense
+    forward without a cache) runs the flash kernel over the prompt's own
+    keys, KV heads broadcast by `repeat_interleave`; a decode step
+    (s == 1) runs `kernels.ops.paged_attention` over the dense
     (B, S_max, KVH, hd) cache read as a pool of B·S_max/block blocks,
     sequence b's table b·(S_max/block) + j, its length min(pos + 1,
-    S_max).  Both compute the reference's function: causal keys past the
-    prompt and cache rows past pos carry no weight there.  CUDA tensors
-    launch the kernels, CPU tensors run their plain versions;
+    S_max).  Cross-attention (`kv_x`: keys and values from another
+    sequence, no cache, no mask) runs flash for a run of queries and
+    paged for one query a sequence, the (B, S_kv, KVH, hd) keys read as
+    a pool the same way with every length S_kv.  All compute the
+    reference's function: causal keys past the prompt and cache rows
+    past pos carry no weight there.  CUDA tensors launch the kernels,
+    CPU tensors run their plain versions;
   * the plain attention (`use_kernels=False`): `_sdpa_chunked`, the
     reference's query-chunked softmax over the whole cache, transcribed.
 """
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention
 
 Params = Dict[str, Any]
 
@@ -212,19 +217,41 @@ def _sdpa_chunked(q, k, v, *, causal: bool, window: Optional[int],
     return out.reshape(b, sq, h, hd)
 
 
+FLASH_BLOCK = 128       # the reference kernel's (bq, bk)
+
+
+def flash_block(n: int) -> int:
+    """FLASH_BLOCK where it divides n, else n's largest divisor below it
+    (1,500 frames -> 125, a 228-token prompt -> 114)."""
+    return next(b for b in range(min(n, FLASH_BLOCK), 0, -1) if n % b == 0)
+
+
 def _flash(q, k, v, *, causal: bool, window: Optional[int]):
-    """Attention of (B, S, H, hd) queries over their own (B, S, KVH, hd)
-    keys through the flash kernel -> (B, S, H, hd)."""
-    g = q.shape[2] // k.shape[2]
+    """Attention of (B, Sq, H, hd) queries over (B, Skv, KVH, hd) keys
+    through the flash kernel -> (B, Sq, H, hd).
 
-    def heads_first(t):
-        return t.transpose(1, 2).contiguous()
+    The kernel computes on a (bq, bk) block grid.  Where the masks make
+    the function independent of the grid -- no window, and not causal or
+    causal over its own keys from position 0 (every row sees key 0, so
+    no row is left with the sentinel alone) -- each block is
+    `flash_block` of its length; otherwise the reference's 128 x 128
+    grid, which refuses a length over 128 that 128 does not divide."""
+    b, sq, h, hd = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    if window is None and (not causal or sq == skv):
+        bq, bk = flash_block(sq), flash_block(skv)
+    else:
+        bq = bk = FLASH_BLOCK
 
-    out = ops.flash_attention(heads_first(q),
-                              heads_first(k.repeat_interleave(g, dim=2)),
-                              heads_first(v.repeat_interleave(g, dim=2)),
-                              causal=causal, window=window)
-    return out.transpose(1, 2)
+    def heads_first(t, n):
+        if g > 1 and t is not q:
+            t = t.repeat_interleave(g, dim=2)
+        return t.transpose(1, 2).contiguous().view(b * h, n, hd)
+
+    out = flash_attention(heads_first(q, sq), heads_first(k, skv),
+                          heads_first(v, skv), causal=causal, window=window,
+                          bq=bq, bk=bk)
+    return out.view(b, h, sq, hd).transpose(1, 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,12 +292,21 @@ def cache_index(cache_pos: torch.Tensor, s_max: int, s: int,
                      at=pos.clamp(max=s_max - 1), live=pos < s_max)
     if not use_kernels:
         return idx
-    block = math.gcd(s_max, PAGED_BLOCK)
-    n = s_max // block
-    tables = torch.arange(b * n, dtype=torch.int32, device=dev).view(b, n)
-    lengths = (pos + 1).clamp(max=s_max).to(torch.int32)
-    return dataclasses.replace(idx, tables=tables, lengths=lengths,
-                               block=block)
+    return dataclasses.replace(
+        kv_index(b, s_max, dev), rows=idx.rows, at=idx.at, live=idx.live,
+        lengths=(pos + 1).clamp(max=s_max).to(torch.int32))
+
+
+def kv_index(b: int, s_kv: int, device) -> CacheIndex:
+    """The paged view of B sequences of s_kv keys, each of length s_kv:
+    blocks of gcd(s_kv, PAGED_BLOCK) tokens, sequence b's table
+    b·(s_kv/block) + j.  Cross-attention's decode route reads its keys
+    so; `cache_index` sets the self cache's lengths on top."""
+    block = math.gcd(s_kv, PAGED_BLOCK)
+    n = s_kv // block
+    tables = torch.arange(b * n, dtype=torch.int32, device=device).view(b, n)
+    lengths = torch.full((b,), s_kv, dtype=torch.int32, device=device)
+    return CacheIndex(tables=tables, lengths=lengths, block=block)
 
 
 def _write(c: torch.Tensor, new: torch.Tensor, idx: CacheIndex) -> None:
@@ -285,8 +321,8 @@ def _write(c: torch.Tensor, new: torch.Tensor, idx: CacheIndex) -> None:
 
 
 def _paged(q, ck, cv, idx: CacheIndex):
-    """One query a sequence (B, 1, H, hd) over the dense cache through
-    the paged kernel -> (B, 1, H, hd)."""
+    """One query a sequence (B, 1, H, hd) over the dense cache (or cross
+    keys) (B, S, KVH, hd) through the paged kernel -> (B, 1, H, hd)."""
     b, _, h, hd = q.shape
     s_max, kvh = ck.shape[1], ck.shape[2]
     shape = (b * s_max // idx.block, idx.block, kvh, hd)
@@ -297,45 +333,62 @@ def _paged(q, ck, cv, idx: CacheIndex):
 
 
 def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor, *, causal: bool = True,
+                    positions: torch.Tensor, *,
+                    kv_x: Optional[torch.Tensor] = None, causal: bool = True,
                     cache: Optional[Params] = None, cache_pos=None,
                     index: Optional[CacheIndex] = None, rope=None,
                     use_kernels: bool = True):
-    """Returns (out, new_cache).  Self-attention.
+    """Returns (out, new_cache).  Self-attention unless `kv_x` (B, S_kv,
+    d) is given: cross-attention, K and V from kv_x, no RoPE, no cache
+    and no causal mask (the reference's `_sdpa_chunked(causal=False)`).
 
     cache: {'k','v'}: (B, S_max, KVH, hd), written IN PLACE and returned
     (the reference is functional and returns new arrays); cache_pos:
-    (B,) write positions.  `index`: `cache_index(...)` and `rope`:
-    `rope_tables(...)`, when the caller made them for every layer."""
+    (B,) write positions.  `index`: `cache_index(...)` -- for
+    cross-attention `kv_index(...)` -- and `rope`: `rope_tables(...)`,
+    when the caller made them for every layer."""
     b, s, _ = x.shape
     hd = cfg.hd
+    src = x if kv_x is None else kv_x
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = src @ p["wk"]
+    v = src @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    k = k.reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    v = v.reshape(b, src.shape[1], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = _qk_norm(p["q_norm"], q)
         k = _qk_norm(p["k_norm"], k)
-    if cfg.rope_pct > 0:
+    if kv_x is None and cfg.rope_pct > 0:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct, rope)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct, rope)
+    if use_kernels and s == 1 and cfg.attn_window is not None \
+            and (cache is not None or kv_x is not None):
+        raise ValueError(
+            f"attn_window={cfg.attn_window}: the paged decode kernel "
+            "has no window mask; decode with use_kernels=False")
 
     new_cache = None
-    if cache is None:
+    if kv_x is not None:
+        if cache is not None:
+            raise ValueError("cross-attention (kv_x) takes no cache")
+        if not use_kernels:
+            out = _sdpa_chunked(q, k, v, causal=False,
+                                window=cfg.attn_window, q_offset=0)
+        elif s > 1:
+            out = _flash(q, k, v, causal=False, window=cfg.attn_window)
+        else:
+            out = _paged(q, k, v, index if index is not None else
+                         kv_index(b, k.shape[1], x.device))
+    elif cache is None:
         if use_kernels:
             out = _flash(q, k, v, causal=causal, window=cfg.attn_window)
         else:
             out = _sdpa_chunked(q, k, v, causal=causal,
                                 window=cfg.attn_window, q_offset=0)
     else:
-        if use_kernels and s == 1 and cfg.attn_window is not None:
-            raise ValueError(
-                f"attn_window={cfg.attn_window}: the paged decode kernel "
-                "has no window mask; decode with use_kernels=False")
         ck, cv = cache["k"], cache["v"]
         if index is None:
             index = cache_index(cache_pos, ck.shape[1], s, use_kernels)

@@ -9,7 +9,10 @@ leading n_super dim.  The port's model runs a plain `layers` list, layer
 (d_in, d_out) in both.  Every block kind's leaves cross the same way:
 a MoE layer's (n_super, E, d, ff) expert stacks and router, Mamba's
 A_log, D and conv weights, RWKV's u, mixes and ln_x; a stacked leaf
-splits along its first dim only.
+splits along its first dim only.  The encoder-decoder's tree
+(`repro.models.whisper.init_params`) holds `tok_embed`, `dec_pos`,
+`enc_norm`, `dec_norm` and the stacked `enc_stack` / `dec_stack`, which
+the port runs as the lists `enc_layers` / `dec_layers`.
 
   params_from_reference  the reference's tree (numpy, jax or torch
                          leaves) -> the port's; a stacked leaf becomes one
@@ -41,28 +44,45 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.optim import AdafactorState, AdamWState
 from repro_torch.tree import tree_map
-from .transformer import require_supported, split_layout
+from .transformer import split_layout
+
+
+#: the encoder-decoder's stacked blocks and the port's lists of them
+ENCDEC_STACKS = (("enc_stack", "enc_layers"), ("dec_stack", "dec_layers"))
+
+
+def _unstack(tree, n: int, leaf):
+    """A stacked block -> n blocks of views (one unbind a leaf)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n, leaf) for k, v in tree.items()}
+        return [{k: parts[k][u] for k in tree} for u in range(n)]
+    return leaf(tree).unbind(0)
+
+
+def _stack(blocks: list):
+    return tree_map(lambda *xs: torch.stack(xs), *blocks)
 
 
 def params_from_reference(ref: Any, cfg: ModelConfig, device=None) -> dict:
-    require_supported(cfg)
     dev = resolve_device(device)
-    prefix_len, period, n_super = split_layout(cfg)
 
     def leaf(a):
         return to_tensor(a, dev)
 
-    def unstack(tree):
-        """A stacked block -> n_super blocks of views (one unbind a leaf)."""
-        if isinstance(tree, dict):
-            parts = {k: unstack(v) for k, v in tree.items()}
-            return [{k: parts[k][u] for k in tree} for u in range(n_super)]
-        return leaf(tree).unbind(0)
-
+    if cfg.is_encdec:
+        out = {name: tree_map(leaf, ref[name]) for name in
+               ("tok_embed", "dec_pos", "enc_norm", "dec_norm")}
+        for stack, layers in ENCDEC_STACKS:
+            n = cfg.n_encoder_layers if stack == "enc_stack" \
+                else cfg.n_layers
+            out[layers] = _unstack(ref[stack], n, leaf)
+        return out
+    prefix_len, period, n_super = split_layout(cfg)
     out = {name: tree_map(leaf, ref[name])
            for name in ("embed", "final_norm", "head") if name in ref}
     layers = [tree_map(leaf, ref["prefix"][i]) for i in range(prefix_len)]
-    stacks = [unstack(ref["stacks"][pos]) for pos in range(period)] \
+    stacks = [_unstack(ref["stacks"][pos], n_super, leaf)
+              for pos in range(period)] \
         if n_super else []
     for u in range(n_super):
         for pos in range(period):
@@ -72,7 +92,13 @@ def params_from_reference(ref: Any, cfg: ModelConfig, device=None) -> dict:
 
 
 def params_to_reference(params: dict, cfg: ModelConfig) -> dict:
-    require_supported(cfg)
+    if cfg.is_encdec:
+        out = {name: params[name] for name in ("tok_embed", "dec_pos")}
+        out.update({name: dict(params[name])
+                    for name in ("enc_norm", "dec_norm")})
+        for stack, layers in ENCDEC_STACKS:
+            out[stack] = _stack(params[layers])
+        return out
     prefix_len, period, n_super = split_layout(cfg)
     layers = params["layers"]
     out = {"embed": params["embed"],
@@ -81,9 +107,8 @@ def params_to_reference(params: dict, cfg: ModelConfig) -> dict:
         out["head"] = params["head"].contiguous()
     out["prefix"] = [layers[i] for i in range(prefix_len)]
     out["stacks"] = [
-        tree_map(lambda *xs: torch.stack(xs),
-                 *[layers[prefix_len + u * period + pos]
-                   for u in range(n_super)]) if n_super else None
+        _stack([layers[prefix_len + u * period + pos]
+                for u in range(n_super)]) if n_super else None
         for pos in range(period)]
     return out
 

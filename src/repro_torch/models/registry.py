@@ -6,8 +6,10 @@
     logits, cache = api.prefill(params, batch, max_len)
     logits, cache = api.decode_step(params, cache, tokens)
 
-Each function takes `use_kernels=` (default True: flash attention for
-prompts, paged attention for decode steps).  The kernels have no
+An encoder-decoder config (`is_encdec`) gets `models.whisper`'s
+functions, every other config `models.transformer`'s.  Each function
+takes `use_kernels=` (default True: flash attention for prompts, paged
+attention for decode steps).  The kernels have no
 backward, so training differentiates `loss_fn` with `use_kernels=False`
 (`train.loop` does).  The reference's
 `input_specs` family serves its multi-pod dry-run and waits for the
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from . import transformer
+from . import transformer, whisper
 from .common import dtype_of
 
 Params = Dict[str, Any]
@@ -40,7 +42,15 @@ class ModelAPI:
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    transformer.require_supported(cfg)
+    if cfg.is_encdec:
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen=None, device=None: whisper.init_params(
+                gen, cfg, device),
+            loss_fn=functools.partial(_flip(whisper.loss_fn), cfg),
+            prefill=functools.partial(_flip(whisper.prefill), cfg),
+            decode_step=functools.partial(_flip(whisper.decode_step), cfg),
+        )
     return ModelAPI(
         cfg=cfg,
         init=lambda gen=None, device=None: transformer.init_params(
@@ -65,8 +75,9 @@ def _flip(fn):
 def random_train_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
                        device=None) -> Dict[str, torch.Tensor]:
     """The reference's batch: the same numpy draws, as tensors on
-    `device` (None = the card)."""
-    transformer.require_supported(cfg)
+    `device` (None = the card).  An encoder-decoder's: `seq` frames of
+    embeddings, then tokens and labels of max(1, min(seq, decoder_len -
+    8)) tokens."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
 
@@ -74,8 +85,15 @@ def random_train_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
         return torch.from_numpy(rng.integers(0, cfg.vocab, shape).astype(
             np.int32)).to(dev)
 
+    def embeds():
+        e = rng.normal(size=(batch, seq, cfg.d_model)).astype(np.float32)
+        return torch.from_numpy(e).to(dev, dtype_of(cfg))
+
+    if cfg.is_encdec:
+        t = max(1, min(seq, cfg.decoder_len - 8))
+        frames = embeds()
+        return {"frames": frames, "tokens": ints((batch, t)),
+                "labels": ints((batch, t))}
     if cfg.family == "vlm":
-        embeds = rng.normal(size=(batch, seq, cfg.d_model)).astype(np.float32)
-        return {"embeds": torch.from_numpy(embeds).to(dev, dtype_of(cfg)),
-                "labels": ints((batch, seq))}
+        return {"embeds": embeds(), "labels": ints((batch, seq))}
     return {"tokens": ints((batch, seq)), "labels": ints((batch, seq))}

@@ -22,8 +22,8 @@ losses included); `remat` recomputes each layer's activations in the
 backward pass (`torch.utils.checkpoint` per layer, where the reference
 checkpoints each scanned super-block: the same recomputation).
 
-The encoder-decoder waits for ROADMAP A11, slice 3b: its config raises
-NotImplementedError.
+The encoder-decoder is `models.whisper`'s: its config raises
+NotImplementedError here (`registry.get_model` dispatches it).
 """
 from __future__ import annotations
 
@@ -76,8 +76,9 @@ def require_supported(cfg: ModelConfig) -> None:
     """Decoder-only configs: every block kind but the encoder-decoder."""
     if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder model is not ported yet "
-            "(ROADMAP A11, slice 3b)")
+            f"{cfg.name}: an encoder-decoder config runs through "
+            "models.whisper (registry.get_model dispatches it), not the "
+            "decoder-only models.transformer")
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,10 @@ decode steps through the paged kernel over the dense cache
 inactive slot's pos keeps growing, as in the reference; past max_context
 its writes are dropped and it attends to the whole cache.
 
+The engine serves decoder-only configs: an encoder-decoder raises
+NotImplementedError with the reference launcher's words (its own engine
+never takes one; `models.whisper` runs through `registry.get_model`).
+
 Sampling: greedy takes the first index of the largest bfloat16 logit,
 as the reference's argmax of their float32 cast does.  Temperature
 sampling draws from a `torch.Generator` on the engine's device seeded
@@ -49,10 +53,16 @@ class EngineConfig:
     seed: int = 0
 
 
+def require_decoder_only(cfg: ModelConfig) -> None:
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: serve launcher drives decoder-only archs")
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
                  use_kernels: bool = True):
-        transformer.require_supported(cfg)
+        require_decoder_only(cfg)
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
@@ -162,6 +172,7 @@ def make_engine(cfg: ModelConfig, params=None,
                 use_kernels: bool = True) -> Engine:
     """An engine over `params`, or over seeded ones made on `device`
     (None = the card) from `gen` (None = seed 0)."""
+    require_decoder_only(cfg)
     ecfg = ecfg or EngineConfig()
     if params is None:
         params = registry.get_model(cfg).init(gen, device)

@@ -1,7 +1,9 @@
-"""Parity of the port's MoE, Mamba-hybrid and RWKV decoders with the
-reference's on the CPU: reduced Jamba (Mamba + attention + MoE, a
-period of 8), Arctic (MoE with a dense residual), Kimi K2 (a dense
-prefix layer, a shared expert) and RWKV-6.
+"""Shared fixtures and tests of the LM families' parity files
+(`tests/test_torch_lm_jamba.py`, `test_torch_lm_moe.py` -- Arctic and
+Kimi K2 -- and `test_torch_lm_rwkv.py`): the port's MoE, Mamba-hybrid and
+RWKV decoders against the reference's on the CPU, at reduced Jamba
+(Mamba + attention + MoE, a period of 8), Arctic (MoE with a dense
+residual), Kimi K2 (a dense prefix layer, a shared expert) and RWKV-6.
 
 Both packages get the same parameters and inputs (`_lm_parity.py`).
 Logits and losses hold within `TOL` in both dtypes; `loss_fn`'s float32
@@ -11,6 +13,11 @@ bucket pads included (ROADMAP C7: the pad tokens run through the
 recurrent state and the MoE capacity in both packages).  The kernel
 path (`use_kernels=True`) runs the flash and paged kernels' plain
 versions here.
+
+The tests below take their cases from the fixtures of the file that
+imports them: `arch` (its families), `use_kernels` (its routes), `knob`
+(its mesh-only knobs) and `dtype` (both, defined here).  Each family
+file imports `_restore_knobs` and `dtype` with the tests it runs.
 """
 import functools
 
@@ -35,7 +42,6 @@ from repro_torch.serve import Engine, EngineConfig, Request
 from repro_torch.train.loop import loss_and_grads
 from repro_torch.tree import leaves
 
-FAMILIES = ["jamba-v0.1-52b", "arctic-480b", "kimi-k2-1t-a32b", "rwkv6-3b"]
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -49,12 +55,9 @@ def _restore_knobs():
         ttuning.set_knob(name, v)
 
 
-def routes(arch):
-    """Attention-free RWKV has no kernel route to choose."""
-    return [True] if arch == "rwkv6-3b" else [True, False]
-
-
-CASES = [(a, d, k) for a in FAMILIES for d in DTYPES for k in routes(a)]
+@pytest.fixture(params=DTYPES)
+def dtype(request):
+    return request.param
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,7 +69,6 @@ def params(arch, dtype):
 # layout, supported configs, parameters
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", FAMILIES)
 def test_family_is_supported_with_the_reference_layout(arch):
     """`require_supported` passes; the plain list of layers holds the
     reference's [prefix] + n_super x [period] in order, each layer with
@@ -89,7 +91,6 @@ def test_family_is_supported_with_the_reference_layout(arch):
             assert np.array_equal(f32(g), f32(w))
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
 def test_init_params_and_cache_have_the_reference_shapes(arch):
     rc, tc = configs(arch)
     want = rreg.get_model(rc).init(jax.random.PRNGKey(0))
@@ -114,7 +115,6 @@ def test_init_params_and_cache_have_the_reference_shapes(arch):
             assert tuple(g.shape) == w.shape
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
 def test_convert_round_trip_is_the_reference_tree(arch):
     """params_to_reference(params_from_reference(tree)) is the tree, the
     (n_super, E, d, ff) expert stacks, router, A_log, D, u and ln_x
@@ -143,7 +143,6 @@ def reference_forward(arch, dtype):
     return f32(x @ rtr.head_matrix(ref, rc)), float(aux)
 
 
-@pytest.mark.parametrize("arch,dtype,use_kernels", CASES)
 def test_forward_logits_and_aux_match_the_reference(arch, dtype,
                                                     use_kernels):
     want, want_aux = reference_forward(arch, dtype)
@@ -180,7 +179,6 @@ def reference_decode(arch, dtype):
     return out, np.asarray(cache["pos"]).tolist(), layers
 
 
-@pytest.mark.parametrize("arch,dtype,use_kernels", CASES)
 def test_prefill_and_decode_match_the_reference(arch, dtype, use_kernels):
     """Every step's logits, the final positions and the caches (K and V,
     Mamba h and conv, RWKV S and lasts) within `TOL`: every layer's in
@@ -210,7 +208,6 @@ def test_prefill_and_decode_match_the_reference(arch, dtype, use_kernels):
             np.testing.assert_allclose(f32(g), f32(w), **TOL[dtype])
 
 
-@pytest.mark.parametrize("arch,dtype,use_kernels", CASES)
 def test_loss_fn_with_the_aux_loss_matches_the_reference(arch, dtype,
                                                          use_kernels):
     rc, tc = configs(arch, dtype)
@@ -225,7 +222,6 @@ def test_loss_fn_with_the_aux_loss_matches_the_reference(arch, dtype,
     np.testing.assert_allclose(float(got), want, **TOL[dtype])
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
 def test_gradients_match_the_reference(arch):
     """float32: `loss_fn` (the aux loss included) and its gradient in the
     reference's stacked layout, every leaf within 1e-4 of its max |g|."""
@@ -245,7 +241,6 @@ def test_gradients_match_the_reference(arch):
         assert np.abs(f32(g) - w).max() <= 1e-4 * np.abs(w).max()
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-3b"])
 def test_remat_modes_give_the_same_loss_and_grads(arch):
     """none / dots / full over Mamba, MoE and RWKV blocks: bit-equal
     loss and gradients (the recomputed routing makes the same
@@ -259,29 +254,6 @@ def test_remat_modes_give_the_same_loss_and_grads(arch):
         assert torch.equal(out[mode][0], out["none"][0])
         assert all(torch.equal(a, b) for a, b in zip(
             leaves(out[mode][1]), leaves(out["none"][1])))
-
-
-def test_slice_and_merge_cache_cover_every_leaf():
-    """A slot's rows of every leaf -- K, V, Mamba h and conv -- move
-    through slice_cache / merge_cache, the other slots untouched."""
-    _, tc = configs("jamba-v0.1-52b", "float32")
-    cache = ttr.init_cache(tc, 3, 8, "cpu")
-    gen = torch.Generator().manual_seed(5)
-    for t in leaves(cache):
-        t.copy_(torch.randint(0, 9, t.shape, generator=gen).to(t.dtype))
-    before = [t.clone() for t in leaves(cache)]
-    sub = ttr.slice_cache(cache, 1)
-    assert all(s.shape[0] == 1 for s in leaves(sub))
-    for s, t in zip(leaves(sub), before):
-        assert torch.equal(s[0], t[1])
-    for s in leaves(sub):
-        s.add_(1)
-    ttr.merge_cache(cache, sub, 1)
-    kinds = {name for layer in cache["layers"] for name in layer}
-    assert kinds == {"kv", "ssm"}
-    for t, b in zip(leaves(cache), before):
-        assert torch.equal(t[1], b[1] + 1)
-        assert torch.equal(t[0], b[0]) and torch.equal(t[2], b[2])
 
 
 # ---------------------------------------------------------------------------
@@ -316,9 +288,6 @@ def reference_served(arch):
     return out, eng.sched.stats()
 
 
-@pytest.mark.parametrize("arch,use_kernels",
-                         [("jamba-v0.1-52b", True), ("jamba-v0.1-52b", False),
-                          ("rwkv6-3b", True)])
 def test_served_tokens_equal_the_reference_engine(arch, use_kernels):
     """Greedy tokens and scheduler stats equal the reference engine's,
     prompts padded to their buckets (C7) included."""
@@ -333,7 +302,6 @@ def test_served_tokens_equal_the_reference_engine(arch, use_kernels):
     assert {b for b, _ in eng.prefill_times} >= {16, 256}
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-3b"])
 def test_prefill_padding_reaches_the_state_as_in_the_reference(arch):
     """ROADMAP C7, reproduced: a 9-token prompt runs in its 16 bucket, so
     the slot's recurrent state has also consumed 7 pad tokens (id 0).
@@ -365,22 +333,6 @@ def test_prefill_padding_reaches_the_state_as_in_the_reference(arch):
                               rtol=1e-3, atol=1e-3)
 
 
-# ---------------------------------------------------------------------------
-# tuning knobs
-# ---------------------------------------------------------------------------
-
-def test_tuning_profiles_equal_the_reference():
-    assert ttuning._PROFILES == rtuning._PROFILES
-    for name in ("baseline", "optimized"):
-        ttuning.set_profile(name)
-        rtuning.set_profile(name)
-        assert ttuning.snapshot() == rtuning.snapshot()
-    ttuning.set_knob("rwkv_chunked_scan", False)
-    assert not ttuning.snapshot()["rwkv_chunked_scan"]
-    with pytest.raises(KeyError):
-        ttuning.set_knob("no_such_knob", True)
-
-
 #: the knobs that act only under a mesh, each with a reduced config and a
 #: prompt length at which the reference reads it
 MESH_ONLY = {
@@ -392,7 +344,6 @@ MESH_ONLY = {
 }
 
 
-@pytest.mark.parametrize("knob", sorted(MESH_ONLY))
 def test_mesh_only_knob_changes_nothing_on_one_device(knob):
     """On one device (no mesh) the reference's logits are the same with
     the knob on and off, and so are the port's, which reads none of them;
@@ -419,7 +370,6 @@ def test_mesh_only_knob_changes_nothing_on_one_device(knob):
 # the launcher
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-3b"])
 def test_launcher_serves_the_family_on_the_cpu(arch, capsys):
     """`--device cpu`: every request finishes with its budget and the
     scheduler's statistics equal the reference launcher's."""
@@ -431,12 +381,4 @@ def test_launcher_serves_the_family_on_the_cpu(arch, capsys):
     assert {r.req_id: r.max_new_tokens for r in reqs} == \
         {rid: len(v) for rid, v in out.items()}
     assert stats == rstats
-    assert "on cpu" in capsys.readouterr().out
-
-
-def test_launcher_layers_cuts_the_depth(capsys):
-    out, _ = tlaunch.main(["--arch", "jamba-v0.1-52b", "--reduced",
-                           "--layers", "5", "--requests", "2", "--max-new",
-                           "4", "--device", "cpu"])
-    assert len(out) == 2
     assert "on cpu" in capsys.readouterr().out

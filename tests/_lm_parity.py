@@ -1,5 +1,5 @@
 """Shared inputs of the LM parity tests (`tests/test_torch_lm*.py`,
-`tests/test_torch_train.py`):
+`tests/test_torch_whisper.py`, `tests/test_torch_train.py`):
 the same parameters and inputs for the reference and the port.
 
 Both packages get the reference's seeded parameter tree, its zero biases
@@ -70,6 +70,16 @@ def inputs(tc, batch, seq, seed=2):
                 {"embeds": torch.from_numpy(e).to(tcommon.dtype_of(tc))})
     toks = rng.integers(0, tc.vocab, (batch, seq)).astype(np.int32)
     return {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+
+
+def frames(tc, batch, n, seed=3):
+    """The same (reference, port) stub frame embeddings (batch, n, d) of
+    the encoder-decoder, in the config's dtype."""
+    e = np.random.default_rng(seed).normal(
+        size=(batch, n, tc.d_model)).astype(np.float32)
+    rdt = jnp.bfloat16 if tc.dtype == "bfloat16" else jnp.float32
+    return jnp.asarray(e, dtype=rdt), torch.from_numpy(e).to(
+        tcommon.dtype_of(tc))
 
 
 def cut(batch, lo, hi):

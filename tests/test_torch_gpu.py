@@ -1398,3 +1398,101 @@ def test_hybrid_engine_serves_on_the_card(cuda, arch):
     assert out[True] == out[False]
     assert {r: len(v) for r, v in out[True].items()} == \
         {i: m for i, (_, m) in enumerate(lengths)}
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder (Whisper)
+# ---------------------------------------------------------------------------
+
+WHISPER_FLASH_CASES = [
+    # bh, sq, skv, causal, bq, bk: Whisper's head dim 64 at lengths over
+    # 128 that 128 does not divide (a tail tile of 92 rows at 1,500)
+    (8, 1500, 1500, False, 125, 125),       # the encoder
+    (8, 228, 1500, False, 114, 125),        # a prompt's cross-attention
+    (8, 228, 228, True, 114, 114),          # a prompt's self-attention
+    (8, 4, 1500, False, 4, 125),            # the start sequence's cross
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WHISPER_FLASH_CASES)
+def test_whisper_flash_shapes_match_the_plain_version(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention_plain
+
+    bh, sq, skv, causal, bq, bk = case
+    q = _randn((bh, sq, 64), dtype, cuda, 0)
+    k = _randn((bh, skv, 64), dtype, cuda, 1)
+    v = _randn((bh, skv, 64), dtype, cuda, 2)
+    reset_launch_counts()
+    got = KERNELS["flash_attention"](q, k, v, causal, None, bq, bk)
+    again = KERNELS["flash_attention"](q, k, v, causal, None, bq, bk)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 2
+    want = flash_attention_plain(q, k, v, causal, None, bq, bk)
+    assert _close(got, want, dtype) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_kv,lengths", [(1500, None), (448, "seeded")])
+def test_whisper_paged_views_match_the_plain_version(cuda, s_kv, lengths,
+                                                     dtype):
+    """Decode cross-attention: 1,500 keys as 4-token blocks, every length
+    1,500; self-attention: the 448-token cache as 16-token blocks."""
+    from repro_torch.kernels import paged_attention_plain
+    from repro_torch.models.common import kv_index
+
+    b, h, hd = 8, 20, 64
+    idx = kv_index(b, s_kv, cuda)
+    assert idx.block == (4 if s_kv == 1500 else 16)
+    lens = idx.lengths if lengths is None else torch.from_numpy(
+        np.random.default_rng(3).integers(1, s_kv + 1, b).astype(
+            np.int32)).to(cuda)
+    pool = (b * s_kv // idx.block, idx.block, h, hd)
+    args = (_randn((b, h, hd), dtype, cuda, 0),
+            _randn((b, s_kv, h, hd), dtype, cuda, 1).view(pool),
+            _randn((b, s_kv, h, hd), dtype, cuda, 2).view(pool),
+            idx.tables, lens)
+    got = KERNELS["paged_attention"](*args)
+    again = KERNELS["paged_attention"](*args)
+    assert _close(got, paged_attention_plain(*args), dtype)
+    assert torch.equal(got, again)
+
+
+def test_whisper_float32_gate_at_full_width(cuda):
+    """Whisper-large-v3's widths at 4 + 4 layers in float32 (TF32 off):
+    two clips of 1,500 frames, a 228-token prompt and 8 teacher-forced
+    decode steps through the kernels against the plain attention, within
+    rtol = atol = 1e-3 (the smoke's float32 gate); 12 flash launches a
+    prefill and 8 paged launches a step."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(CONFIGS["whisper-large-v3"], n_layers=4,
+                              n_encoder_layers=4, dtype="float32")
+    api = registry.get_model(cfg)
+    params = api.init(torch.Generator(device=cuda).manual_seed(8), cuda)
+    rng = np.random.default_rng(9)
+    frames = torch.from_numpy(rng.normal(size=(2, 1500, cfg.d_model)).astype(
+        np.float32)).to(cuda)
+    toks = torch.from_numpy(rng.integers(1, 50257, (2, 236)).astype(
+        np.int32)).to(cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for kern in (True, False):
+        reset_launch_counts()
+        logits, cache = api.prefill(params, {"frames": frames,
+                                             "tokens": toks[:, :228]}, 448,
+                                    use_kernels=kern)
+        out = [logits[:, 0]]
+        for t in range(228, 236):
+            step, cache = api.decode_step(params, cache, toks[:, t:t + 1],
+                                          use_kernels=kern)
+            out.append(step[:, 0])
+        torch.cuda.synchronize()
+        runs[kern] = (torch.stack(out, 1), launch_counts())
+    (got, counts), (want, plain_counts) = runs[True], runs[False]
+    assert torch.isfinite(got).all()
+    assert torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+    assert counts["flash_attention"] == 12
+    assert counts["paged_attention"] == 8 * 8
+    assert sum(plain_counts.values()) == 0

@@ -145,6 +145,11 @@ SLICE_MODULES = {
     "repro_torch.models.convert": ("params_from_reference",
                                    "params_to_reference",
                                    "opt_state_from_reference"),
+    # the encoder-decoder
+    "repro_torch.models.whisper": ("sinusoids", "init_enc_block",
+                                   "init_dec_block", "init_params",
+                                   "encode", "decode", "init_cache",
+                                   "loss_fn", "prefill", "decode_step"),
     "repro_torch.serve.scheduler": ("Request", "Slot", "Scheduler"),
     "repro_torch.serve.engine": ("EngineConfig", "Engine", "make_engine"),
     "repro_torch.launch.serve": ("synthetic_requests", "main"),
@@ -186,7 +191,7 @@ PACKAGE_EXPORTS = {
     "repro_torch.distributed": ("row_mesh", "spmv_row_sharded"),
     "repro_torch.serve": ("Engine", "EngineConfig", "make_engine",
                           "Request", "Scheduler"),
-    "repro_torch.models": ("ModelAPI", "get_model"),
+    "repro_torch.models": ("ModelAPI", "get_model", "whisper"),
     "repro_torch.optim": ("grad_compress", "AdamWState", "AdafactorState",
                           "OptimizerConfig", "adamw_init", "adamw_update",
                           "adafactor_init", "adafactor_update", "cosine_lr",

@@ -29,8 +29,8 @@ from repro_torch.models import transformer as ttr
 DENSE = ["granite-8b", "stablelm-1.6b", "starcoder2-15b", "qwen2-72b",
          "chameleon-34b"]
 #: the MoE, hybrid and RWKV families have their parity cases in
-#: `tests/test_torch_lm_families.py`; only the encoder-decoder waits
-UNPORTED = ["whisper-large-v3"]
+#: `tests/test_torch_lm_{jamba,moe,rwkv}.py`, the encoder-decoder in
+#: `tests/test_torch_whisper.py`
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -64,17 +64,6 @@ def test_granite_8b_published_size():
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
             cfg.d_ff, cfg.vocab) == (36, 4096, 32, 8, 128, 14336, 49152)
     assert round(cfg.param_count() / 1e9, 3) == 8.254
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = CONFIGS[arch].reduced()
-    for call in (lambda: treg.get_model(cfg),
-                 lambda: ttr.init_params(None, cfg, "cpu"),
-                 lambda: ttr.init_cache(cfg, 1, 8, "cpu"),
-                 lambda: treg.random_train_batch(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="A11, slice 3"):
-            call()
 
 
 # ---------------------------------------------------------------------------
