@@ -153,6 +153,55 @@ kernels/csrc/` and then runs these phases, one output line per step:
            0.5) and `launch.train.main` ends where it ended without a
            crash after a crash at step 7 (last step equal, final loss
            within rel 1e-5);
+  mesh     the mesh layer (`distributed.api`'s meshes and `shard_map`,
+           `distributed.collectives`, `distributed.pipeline`,
+           `optim.grad_compress.crosspod_allreduce_compressed` and the
+           MoE mesh paths) on four ranks that share the card over gloo,
+           every collective staging CUDA tensors through host memory
+           (`launch.mesh.World`: started once the train phase's timed
+           steps are done, so the ranks' imports and CUDA contexts
+           overlap its untimed checks and no other phase's timings;
+           the backend is printed there and each mesh's transport in
+           the phase).  First, on this process, the one-rank references:
+           Jamba-v0.1's MoE layer at its published widths (d 4096, 16
+           experts top-2, d_expert_ff 14336, bf16, 5.25 GiB of seeded
+           expert weights) at capacity factor 8 (no slot drops), global
+           `apply_moe` on 8 x 512 prefill and 8 x 1 decode tokens in
+           bfloat16 and float32; and Jamba's first two layers (Mamba +
+           dense FFN, Mamba + the MoE; 6.97 GiB bf16) teacher-forced
+           (8 prompts of 512 tokens, 16 decode steps) in float32 and
+           bfloat16.  Then each rank, from the same seeds (rank 0 checks
+           its inputs' bits against this process's): (A) `apply_moe_
+           sharded` and `apply_moe_a2a` on (data 1, model 4) and (data
+           2, model 2), `apply_moe_decode` on (2, 2), in bfloat16 (a
+           first call and a timed replay, bit for bit; within 1.1x the
+           global bf16 layer's error against the global float32 output)
+           and float32 with `moe_combine_bf16` off (within 1e-5 of max
+           |y|; decode, whose combine is the reference's bfloat16 psum,
+           within 2^-7), aux losses within rtol 1e-5 (decode: zeros);
+           (B) the two layers under `use_mesh` on (2, 2) with
+           `moe_all_to_all` off (the reference's optimized profile):
+           prefill through `apply_moe_auto` to the sharded path, each
+           decode step to the weight-stationary one (the paths' calls
+           counted), logits within 1.1x the one-rank bf16 run's error
+           against the one-rank float32 run, the whole run (prefill
+           and 16 decode steps) replayed bit for bit; (C)
+           `ring_allgather_matmul` float32 (512, 4096) @ (4096, 14336)
+           sharded on model 4 against `torch.matmul`, `lse_merge_
+           attention` at Granite-8B's decode widths (B 8, H 32 / KVH 8,
+           hd 128, a 1,024-token cache split in 4, seeded lengths
+           117-1024) against plain softmax attention, both within 1e-4;
+           `crosspod_allreduce_compressed` over StableLM-1.6B's
+           embedding and layer 0 on (pod 2, data 2), bit for bit the
+           formula on one rank; `pipeline_apply` on 4 stages at the
+           reference's toy widths within 1e-4.  Each call's ms (CUDA
+           events on rank 0 between barriers) beside its host ms and the
+           collectives' share (gloo through the host, not an
+           interconnect), the global one-rank layer's ms beside; every
+           rank's results the same bits (the ring product, folded from
+           each rank's own ring position, within its bound on every
+           rank).  A rank that raises or a collective that times out
+           fails the run;
   main     the main path at 2^22 rows: `fd_matrix` and `rmat_matrix`,
            each of the four graph drivers through the kernels, with every
            launch count set to 0 just before and read just after; then
@@ -340,6 +389,7 @@ granite-8b's `reduced()` config) to rehearse the control flow:
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import importlib
 import hashlib
@@ -2981,12 +3031,12 @@ def train_split(prof) -> tuple:
     return out, busy
 
 
-def run_train(args, dev, K):
+def run_train(args, dev, K, after_timed=lambda: None):
     """Train StableLM-1.6B at its published size through the port's
     train step (plain attention, AdamW), check the card against the CPU
     at two layers, then the reduced config's descent and the launcher's
-    crash/restart.  Returns the phase's attention-kernel launches (which
-    must stay 0)."""
+    crash/restart.  `after_timed()` runs once the timed steps are done.
+    Returns the phase's attention-kernel launches (which must stay 0)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import train as launch_train
@@ -3104,6 +3154,7 @@ def run_train(args, dev, K):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     log(f"train (a) full size s={time.perf_counter() - t0:.1f}")
+    after_timed()
     t0 = time.perf_counter()
 
     # -- (b) the card against the CPU: two layers, float32, TF32 off ------
@@ -3195,6 +3246,593 @@ def run_train(args, dev, K):
 # ---------------------------------------------------------------------------
 # kernel vs plain on the card
 # ---------------------------------------------------------------------------
+
+MESH_ARCH = "jamba-v0.1-52b"        # the MoE at its published widths
+MESH_SEED = 27                      # weights, tokens and the collectives'
+MESH_RANKS = 4                      # on one card: gloo, ranks share it
+MESH_CF = 8.0                       # no slot drops: equal to apply_moe
+MESH_MESHES = {"1x4": (1, 4), "2x2": (2, 2)}    # (data, model)
+MESH_PATHS = (("sharded", "1x4"), ("a2a", "1x4"), ("sharded", "2x2"),
+              ("a2a", "2x2"), ("decode", "2x2"))
+MESH_LAYERS = 2                     # Mamba + dense FFN, Mamba + the MoE
+MESH_STEPS = 16                     # teacher-forced decode steps
+MESH_F32_RTOL = 1e-5                # of max |y|, float32 paths
+MESH_DECODE_RTOL = 2.0 ** -7        # its combine is a bfloat16 psum
+MESH_GATE = 1.1                     # x the one-rank bfloat16 error
+MESH_TOL = 1e-4                     # ring, LSE merge, pipeline (the
+#                                     reference's test_multidevice bound)
+
+
+def mesh_sizes(small: bool) -> dict:
+    """The phase's shapes: tokens (B, S) and decode batch of the MoE; the
+    ring matmul's (M, K, N); the LSE merge's (B, H, KVH, hd, cache,
+    shortest length) at Granite-8B's decode widths; StableLM-1.6B for
+    the cross-pod all-reduce; the pipeline at the reference's toy
+    widths.  `small`: the CPU rehearsal's."""
+    if small:
+        return dict(tokens=(8, 64), decode=8, ring=(64, 256, 512),
+                    lse=(2, 8, 2, 32, 128, 17), pipe=(4, 8, 16, 4))
+    return dict(tokens=(8, 512), decode=8, ring=(512, 4096, 14336),
+                lse=(8, 32, 8, 128, 1024, 117), pipe=(4, 8, 16, 4))
+
+
+def mesh_config(small: bool, n_layers=None):
+    """Jamba-v0.1 at capacity factor 8 (reduced for the rehearsal)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MESH_ARCH)
+    cfg = cfg.reduced() if small else cfg
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MESH_CF))
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg
+
+
+def mesh_inputs(cfg, small, dev):
+    """The MoE's seeded bfloat16 weights and (prefill, decode) tokens:
+    the same bits on every rank and in the parent."""
+    from repro_torch.models import moe
+
+    sizes = mesh_sizes(small)
+    g = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    p = moe.init_moe(g, cfg, dev)
+    x = torch.randn(*sizes["tokens"], cfg.d_model, generator=g, device=dev)
+    xd = torch.randn(sizes["decode"], 1, cfg.d_model, generator=g,
+                     device=dev)
+    return p, x.to(torch.bfloat16), xd.to(torch.bfloat16)
+
+
+def mesh_tokens(cfg, small):
+    """The model run's prompts (B, S) and teacher-forced steps (B, T)."""
+    b, s = mesh_sizes(small)["tokens"]
+    rng = np.random.default_rng(MESH_SEED + 1)
+    prompts = rng.integers(1, cfg.vocab, (b, s)).astype(np.int64)
+    steps = rng.integers(1, cfg.vocab, (b, MESH_STEPS)).astype(np.int64)
+    return torch.from_numpy(prompts), torch.from_numpy(steps)
+
+
+def bits_digest(t: torch.Tensor, chunk: int = 1 << 24) -> int:
+    """A position-weighted sum of the raw bits (equal tensors, equal
+    digests), 2^24 values at a time."""
+    b = t.detach().contiguous().view({
+        1: torch.int8, 2: torch.int16, 4: torch.int32,
+        8: torch.int64}[t.element_size()]).reshape(-1)
+    total = torch.zeros((), dtype=torch.int64, device=b.device)
+    for i in range(0, b.numel(), chunk):
+        c = b[i:i + chunk].long()
+        w = torch.arange(i, i + c.numel(), device=b.device) % 65521 + 1
+        total += (c * w).sum()
+    return int(total)
+
+
+def upcast(p: dict) -> dict:
+    """float32 copies of the weights, one leaf at a time (each bfloat16
+    leaf freed as it goes)."""
+    out = {}
+    for k in list(p):
+        out[k] = p.pop(k).float()
+    return out
+
+
+def forced_logits(api, params, prompts, steps, dev):
+    """Prefill, then the teacher-forced decode steps: (1 + T, B, V)
+    float32 logits."""
+    logits, cache = api.prefill(params, {"tokens": prompts.to(dev)},
+                                prompts.shape[1] + steps.shape[1])
+    rows = [logits[:, 0].float()]
+    for t in range(steps.shape[1]):
+        logits, cache = api.decode_step(params, cache,
+                                        steps[:, t:t + 1].to(dev))
+        rows.append(logits[:, 0].float())
+    return torch.stack(rows)
+
+
+def run_mesh(args, dev, world) -> dict:
+    """The mesh phase: the one-rank references on this process, then the
+    four ranks of `world` (`launch.mesh.World`, started in the train phase:
+    one card, gloo).  Returns the phase's kernel launch counts (none: its
+    paths run torch ops and collectives)."""
+    from repro_torch.models import moe, registry, transformer
+    from repro_torch.tree import leaves, tree_map
+
+    small = args.cpu_rehearsal
+    t_lap = [time.perf_counter()]
+
+    def lap():
+        t, t_lap[0] = t_lap[0], time.perf_counter()
+        return t_lap[0] - t
+
+    # -- A: the global MoE layer on one rank, bfloat16 and float32 --------
+    cfg = mesh_config(small)
+    p, x, xd = mesh_inputs(cfg, small, dev)
+    refs = {"inputs": [bits_digest(t) for t in (x, xd, p["w_gate"],
+                                                p["w_down"])]}
+    n_w = sum(t.numel() for t in p.values())
+    y, aux = moe.apply_moe(p, cfg, x)                 # warm
+    sync(dev)
+    t0 = time.perf_counter()
+    y, aux = moe.apply_moe(p, cfg, x)
+    sync(dev)
+    global_ms = (time.perf_counter() - t0) * 1e3
+    refs["moe bfloat16"] = (y.float().cpu(), moe.apply_moe(
+        p, cfg, xd)[0].float().cpu(), {k: float(v) for k, v in aux.items()})
+    p32 = upcast(p)
+    del p, y
+    y, aux = moe.apply_moe(p32, cfg, x.float())
+    refs["moe float32"] = (y.cpu(), moe.apply_moe(p32, cfg, xd.float())[0]
+                           .cpu(), {k: float(v) for k, v in aux.items()})
+    del p32, y
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"mesh moe {cfg.name}: d={cfg.d_model} experts={cfg.moe.n_experts} "
+        f"top_k={cfg.moe.top_k} d_expert_ff={cfg.moe.d_expert_ff} "
+        f"capacity_factor={MESH_CF} expert weights={n_w} "
+        f"({n_w * 2 / 2 ** 30:.2f} GiB bf16 a rank); tokens "
+        f"{tuple(x.shape[:2])} prefill, {tuple(xd.shape[:2])} decode; "
+        f"global apply_moe on one rank: bf16 {global_ms:.2f} ms a call "
+        f"(host clock after a sync) [{lap():.1f} s]")
+
+    # -- B: the model, 2 layers, on one rank in float32 and bfloat16 -------
+    mcfg = mesh_config(small, MESH_LAYERS)
+    layout = transformer.layer_layout(mcfg)
+    api = registry.get_model(mcfg)
+    prompts, steps = mesh_tokens(mcfg, small)
+    params = api.init(torch.Generator(device=dev).manual_seed(MESH_SEED + 2),
+                      dev)
+    n_m = sum(t.numel() for t in leaves(params))
+    want = forced_logits(api, params, prompts, steps, dev)      # bf16
+    c32 = dataclasses.replace(mcfg, dtype="float32")
+    params = tree_map(lambda t: t.float(), params)
+    ref32 = forced_logits(registry.get_model(c32), params, prompts, steps,
+                          dev)
+    err = (want - ref32).abs()
+    refs["model"] = (ref32.cpu(), float(err.max()), float(err.mean()))
+    log(f"mesh model {mcfg.name}: layers={mcfg.n_layers} "
+        f"({' '.join(k + ('+moe' if m else '') for k, m in layout)})"
+        f" params={n_m} ({n_m * 2 / 2 ** 30:.2f} GiB bf16 a rank); "
+        f"{tuple(prompts.shape)} prompts + {MESH_STEPS} decode steps on "
+        f"one rank: bf16 vs float32 max_abs_err={refs['model'][1]:.4g} "
+        f"mean={refs['model'][2]:.4g} [{lap():.1f} s]")
+    del params, want, ref32, err
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- the ranks ----------------------------------------------------------
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "refs.pt")
+        torch.save(refs, path)
+        t0, wall0 = time.perf_counter(), time.time()
+        ranks = world.run(mesh_rank, args=(path, small, global_ms))
+        launch_s = time.perf_counter() - t0
+    for line in ranks[0]["lines"]:
+        log(line)
+    for ok, what in ranks[0]["checks"]:
+        check(ok, what)
+    differ = sorted({k for r in ranks for k in r["digests"]
+                     if r["digests"][k] != ranks[0]["digests"].get(k)})
+    same = not differ
+    check(same, f"mesh: the ranks' results differ in {differ}")
+    log(f"mesh ranks agree: {same} ({len(ranks[0]['digests'])} results "
+        f"on each of {len(ranks)} ranks, bit for bit); run_s="
+        f"{launch_s:.1f}: ranks entered after "
+        f"{min(q['entered'] for q in ranks) - wall0:.1f}-"
+        f"{max(q['entered'] for q in ranks) - wall0:.1f} s, meshes "
+        f"{ranks[0]['startup_s']:.1f} s, then rank 0's parts "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in ranks[0]["parts"].items())
+        + f" [{lap():.1f} s]")
+    if dev.type == "cuda":
+        log("mesh ranks' peak device memory (torch.cuda.max_memory_allocated"
+            " a rank, GiB, by part): " + "; ".join(
+                f"rank {i} " + ", ".join(f"{k} {v:.2f}"
+                                         for k, v in q["peaks"].items())
+                for i, q in enumerate(ranks))
+            + f"; the four ranks' largest sum "
+            f"{sum(max(q['peaks'].values()) for q in ranks):.2f}")
+    return {}
+
+
+class MeshRank:
+    """What one rank of the mesh phase holds: its device, meshes and the
+    parent's references (rank 0), and what it reports back."""
+
+    def __init__(self, rank, refs_path, small, global_ms):
+        from repro_torch.launch.mesh import make_mesh
+
+        self.entered = time.time()          # the launcher's wall clock
+        t0 = time.perf_counter()
+        self.rank, self.small, self.global_ms = rank, small, global_ms
+        on_card = torch.cuda.is_available() and not small
+        self.dev = (torch.device("cuda", torch.cuda.current_device())
+                    if on_card else torch.device("cpu"))
+        self.meshes = {name: make_mesh(shape, ("data", "model"))
+                       for name, shape in MESH_MESHES.items()}
+        self.meshes["pod"] = make_mesh((2, 2), ("pod", "data"))
+        self.meshes["stage"] = make_mesh((MESH_RANKS,), ("stage",))
+        self.startup_s = time.perf_counter() - t0
+        self.refs = torch.load(refs_path) if rank == 0 else None
+        self.lines, self.checks, self.digests = [], [], {}
+
+    def note(self, line):
+        if self.rank == 0:
+            self.lines.append(line)
+
+    def gate(self, ok, what):
+        if self.rank == 0:
+            self.checks.append((bool(ok), what))
+
+    def ref(self, key):
+        return tuple(t.to(self.dev) if isinstance(t, torch.Tensor) else t
+                     for t in self.refs[key])
+
+    def timed(self, fn):
+        """(result, event ms on this rank, host ms, collectives' host ms,
+        MiB this rank sent) of one call that every rank enters together."""
+        import torch.distributed as dist
+
+        from repro_torch.distributed import api
+
+        on_card = self.dev.type == "cuda"
+        dist.barrier()
+        if on_card:
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        api.STATS.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            ev[1].record()
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        stats = dict(api.STATS)
+        dist.barrier()
+        ms = ev[0].elapsed_time(ev[1]) if on_card else float("nan")
+        return (out, ms, host_ms, stats.get("seconds", 0.0) * 1e3,
+                stats.get("bytes", 0) / 2 ** 20)
+
+    def time_note(self, ms, host_ms, coll_ms, coll_mb) -> str:
+        return (f"ms={ms:.3f} (events, rank 0) host_ms={host_ms:.3f} "
+                f"collectives_ms={coll_ms:.3f} ({coll_mb:.1f} MiB sent; "
+                f"share={coll_ms / max(host_ms, 1e-9):.2f}, gloo through "
+                f"the host)")
+
+
+def mesh_rank(rank, refs_path, small, global_ms):
+    """One rank of the mesh phase (spawned by `run_mesh`): the three MoE
+    paths in bfloat16, the model run, the paths in float32, then the
+    collectives.  Returns rank 0's lines and checks and every rank's
+    result digests."""
+    r = MeshRank(rank, refs_path, small, global_ms)
+    from repro_torch.distributed import api
+
+    r.note("mesh transport: " + ", ".join(
+        f"{name} {api.transport(m, m.mesh_dim_names[-1])}"
+        for name, m in r.meshes.items())
+        + ": psum / pmean / pmax = all_gather, then a fold in mesh order; "
+        "all_gather; all_to_all; ppermute = all_to_all with one nonempty "
+        "split (host: gloo, CUDA tensors staged through host memory)")
+    parts, peaks, calls = {}, {}, []
+    for name, part in (("moe bf16", lambda: mesh_moe_paths(r, "bfloat16")),
+                       ("model", lambda: mesh_model(r)),
+                       ("moe f32", lambda: mesh_moe_paths(r, "float32")),
+                       ("collectives", lambda: mesh_collectives(r) or [])):
+        t0 = time.perf_counter()
+        if r.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(r.dev)
+        calls += part()
+        parts[name] = time.perf_counter() - t0
+        if r.dev.type == "cuda":
+            peaks[name] = torch.cuda.max_memory_allocated(r.dev) / 2 ** 30
+    ran = {path for path, n in calls if n}
+    r.gate(ran == {"sharded", "a2a", "decode"},
+           f"mesh: the MoE paths that ran are {sorted(ran)}")
+    return {"lines": r.lines, "checks": r.checks, "digests": r.digests,
+            "entered": r.entered, "startup_s": r.startup_s, "parts": parts,
+            "peaks": peaks}
+
+
+def mesh_moe_paths(r: MeshRank, dtype: str) -> list:
+    """Each path on its meshes against the global layer's references:
+    float32 within 1e-5 of max |y| (the decode path, whose combine is a
+    bfloat16 psum, within 2^-7), bfloat16 within 1.1x the global bfloat16
+    layer's error against the global float32 one; aux losses within
+    rtol 1e-5 (decode: the reference's zeros); in bfloat16 a replay bit
+    for bit (and timed).  -> [(path, calls)]."""
+    from repro_torch.distributed.api import use_mesh
+    from repro_torch.models import moe, tuning
+
+    cfg = mesh_config(r.small)
+    p, x, xd = mesh_inputs(cfg, r.small, r.dev)
+    if dtype == "bfloat16" and r.rank == 0:
+        got = [bits_digest(t) for t in (x, xd, p["w_gate"], p["w_down"])]
+        r.gate(got == r.refs["inputs"],
+               "mesh: rank 0's seeded inputs differ from the parent's")
+    if dtype == "float32":
+        p, x, xd = upcast(p), x.float(), xd.float()
+    tuning.set_knob("moe_combine_bf16", dtype == "bfloat16")
+    out = []
+    try:
+        for path, mname in MESH_PATHS:
+            fn = getattr(moe, f"apply_moe_{path}")
+            xin = xd if path == "decode" else x
+            moe.CALLS.clear()
+            with use_mesh(r.meshes[mname]):
+                # bfloat16: a first call, then the timed replay
+                first = fn(p, cfg, xin) if dtype == "bfloat16" else None
+                (y, aux), *t = r.timed(lambda: fn(p, cfg, xin))
+            out.append((path, moe.CALLS[path]))
+            key = f"{path} {mname} {dtype}"
+            r.digests[key] = bits_digest(y)
+            if r.rank == 0:
+                mesh_path_checks(r, key, path, dtype, first, y, aux, t)
+    finally:
+        tuning.set_knob("moe_combine_bf16", True)
+    del p, x, xd
+    if r.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_path_checks(r, key, path, dtype, first, y, aux, t) -> None:
+    replay = first is None or all(same_bits(u, v) for u, v in zip(
+        (first[0], *first[1].values()), (y, *aux.values())))
+    r.gate(replay, f"mesh {key}: a replay differs")
+    r.gate(bool(torch.isfinite(y).all()), f"mesh {key}: not finite")
+    i = 1 if path == "decode" else 0
+    f32 = r.ref("moe float32")[i]
+    top = float(f32.abs().max())
+    if dtype == "float32":
+        err = float((y - f32).abs().max())
+        rtol = MESH_DECODE_RTOL if path == "decode" else MESH_F32_RTOL
+        ok = err <= rtol * top
+        how = (f"vs global float32: max_abs_err={err:.4g} <= "
+               f"{rtol:.3g} x max|y| {top:.4g}")
+    else:
+        base = r.ref("moe bfloat16")[i]
+        err = float((y.float() - f32).abs().max())
+        mean = float((y.float() - f32).abs().mean())
+        berr = float((base - f32).abs().max())
+        bmean = float((base - f32).abs().mean())
+        ok = err <= MESH_GATE * berr and mean <= MESH_GATE * bmean
+        how = (f"vs global float32: max_abs_err={err:.4g} mean={mean:.4g}; "
+               f"global bfloat16's {berr:.4g} / {bmean:.4g} (gate "
+               f"{MESH_GATE}x)")
+    if path == "decode":
+        aux_ok = all(float(v) == 0.0 for v in aux.values())
+        aux_how = "aux losses 0 (the reference's, at serve time)"
+    else:
+        want = r.refs[f"moe {dtype}"][2]
+        aux_ok = all(abs(float(aux[k]) - want[k]) <= 1e-5 * abs(want[k])
+                     for k in want)
+        aux_how = "aux " + " ".join(f"{k}={float(aux[k]):.7g} (global "
+                                    f"{want[k]:.7g})" for k in want)
+    r.gate(ok, f"mesh {key}: {how}")
+    r.gate(aux_ok, f"mesh {key}: {aux_how}, rtol 1e-5")
+    r.note(f"mesh {key}: {how} ok={ok}; {aux_how} ok={aux_ok}; "
+           + (f"replay bit-identical={replay}; " if first else "one call; ")
+           + f"{r.time_note(*t)}; global one-rank bf16 {r.global_ms:.3f} "
+           "ms")
+
+
+def mesh_model(r: MeshRank) -> list:
+    """Jamba's first two layers at full width under use_mesh on (2, 2),
+    with the reference's optimized profile's `moe_all_to_all` (off):
+    prefill through apply_moe_auto to the sharded path, the decode steps
+    to the weight-stationary one; teacher-forced logits against the
+    one-rank float32 run within 1.1x the one-rank bfloat16 run's error,
+    and a replay of the whole run bit for bit.
+    -> [(path, calls)]."""
+    from repro_torch.distributed.api import use_mesh
+    from repro_torch.models import moe, registry, tuning
+
+    mcfg = mesh_config(r.small, MESH_LAYERS)
+    api = registry.get_model(mcfg)
+    prompts, steps = mesh_tokens(mcfg, r.small)
+    params = api.init(torch.Generator(device=r.dev).manual_seed(
+        MESH_SEED + 2), r.dev)
+    moe.CALLS.clear()
+    runs = []
+    tuning.set_knob("moe_all_to_all", False)
+    try:
+        with use_mesh(r.meshes["2x2"]):
+            for _ in range(2):
+                runs.append(r.timed(lambda: forced_logits(
+                    api, params, prompts, steps, r.dev)))
+    finally:
+        tuning.set_knob("moe_all_to_all", True)
+    calls = dict(moe.CALLS)
+    got = runs[0][0]
+    r.digests["model"] = bits_digest(got)
+    replay = same_bits(runs[1][0], got)
+    want = {"sharded": 2, "decode": 2 * MESH_STEPS}
+    r.gate(calls == want, f"mesh model: MoE path calls {calls}, not {want}")
+    if r.rank == 0:
+        ref32, berr, bmean = r.ref("model")
+        err = float((got - ref32).abs().max())
+        mean = float((got - ref32).abs().mean())
+        ok = err <= MESH_GATE * berr and mean <= MESH_GATE * bmean
+        r.gate(ok, f"mesh model: bf16 on the mesh vs one-rank float32 "
+                   f"max_abs_err={err:.4g} mean={mean:.4g}, one-rank bf16 "
+                   f"{berr:.4g} / {bmean:.4g} (gate {MESH_GATE}x)")
+        r.gate(replay, "mesh model: a replay differs")
+        r.gate(bool(torch.isfinite(got).all()), "mesh model: not finite")
+        r.note(f"mesh model on 2x2 ({mcfg.n_layers} layers, prompts "
+               f"{tuple(prompts.shape)} + {MESH_STEPS} teacher-forced "
+               f"decode steps): MoE calls {calls} (moe_all_to_all off: "
+               f"prefill through apply_moe_auto -> sharded, each decode "
+               f"step -> decode); vs "
+               f"one-rank float32 max_abs_err={err:.4g} mean={mean:.4g}; "
+               f"one-rank bf16 {berr:.4g} / {bmean:.4g} (gate {MESH_GATE}x) "
+               f"ok={ok}; prefill and {MESH_STEPS} steps replayed "
+               f"bit-identical={replay}; the run {r.time_note(*runs[0][1:])}")
+    del params, runs, got
+    if r.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return list(calls.items())
+
+
+def mesh_collectives(r: MeshRank) -> None:
+    """The ring matmul and the LSE merge on (1, 4), the cross-pod
+    all-reduce on (pod 2, data 2), the pipeline on 4 stages."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives, pipeline
+    from repro_torch.distributed.api import P, shard_map
+    from repro_torch.models import registry
+    from repro_torch.optim import grad_compress
+    from repro_torch.tree import leaves_with_path
+
+    sizes = mesh_sizes(r.small)
+    dev = r.dev
+    g = torch.Generator(device=dev).manual_seed(MESH_SEED + 3)
+    rng = np.random.default_rng(MESH_SEED + 4)
+
+    # ring all-gather matmul, float32, w sharded on 'model'
+    m, k, n = sizes["ring"]
+    x = torch.randn(m, k, generator=g, device=dev)
+    w = torch.randn(k, n, generator=g, device=dev)
+    ring = shard_map(
+        lambda a, b: collectives.ring_allgather_matmul(a, b, "model"),
+        r.meshes["1x4"], in_specs=(P(None, None), P("model", None)),
+        out_specs=P(None, None))
+    y, *t = r.timed(lambda: ring(x, w))
+    want = x @ w
+    err = float((y - want).abs().max())
+    ok = bool(torch.allclose(y, want, rtol=MESH_TOL, atol=MESH_TOL))
+    # each rank folds the shards from its own ring position, so the
+    # ranks' products differ in rounding (as the reference's devices'
+    # do): every rank holds its own within the bound
+    r.digests["ring within bound"] = ok
+    r.gate(ok, f"mesh ring_allgather_matmul: max_abs_err={err:.4g}")
+    r.note(f"mesh ring_allgather_matmul ({m}, {k}) @ ({k}, {n}) float32, w "
+           f"on model 4: vs torch.matmul max_abs_err={err:.4g} (rtol=atol "
+           f"{MESH_TOL}) ok={ok}; {r.time_note(*t)}")
+    del x, w, y, want
+
+    # LSE-merged decode attention over a KV cache split in 4
+    b, h, kvh, hd, s, lo = sizes["lse"]
+    q = torch.randn(b, h, 1, hd, generator=g, device=dev).bfloat16()
+    kc = torch.randn(b, s, kvh, hd, generator=g, device=dev).bfloat16()
+    vc = torch.randn(b, s, kvh, hd, generator=g, device=dev).bfloat16()
+    lengths = torch.from_numpy(rng.integers(lo, s + 1, b)).to(dev)
+    valid = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+    merge = shard_map(
+        lambda *a: collectives.lse_merge_attention(*a[:3], "model", a[3]),
+        r.meshes["1x4"],
+        in_specs=(P(), P(None, "model", None, None),
+                  P(None, "model", None, None), P(None, "model")),
+        out_specs=P())
+    out, *t = r.timed(lambda: merge(q, kc, vc, valid))
+    kf = kc.float().repeat_interleave(h // kvh, dim=2)
+    vf = vc.float().repeat_interleave(h // kvh, dim=2)
+    sc = torch.einsum("bhqd,bshd->bhqs", q.float(), kf) / hd ** 0.5
+    sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
+    want = torch.einsum("bhqs,bshd->bhqd", sc.softmax(-1), vf)
+    err = float((out - want).abs().max())
+    ok = bool(torch.allclose(out, want, rtol=MESH_TOL, atol=MESH_TOL))
+    r.digests["lse"] = bits_digest(out)
+    r.gate(ok, f"mesh lse_merge_attention: max_abs_err={err:.4g}")
+    r.note(f"mesh lse_merge_attention B {b} H {h}/{kvh} hd {hd}, {s}-token "
+           f"cache on model 4, lengths {lengths.min().item()}-"
+           f"{lengths.max().item()}, bf16 in: vs plain softmax attention "
+           f"max_abs_err={err:.4g} (rtol=atol {MESH_TOL}) ok={ok}; "
+           f"{r.time_note(*t)}")
+    del q, kc, vc, kf, vf, sc
+
+    # the int8 cross-pod all-reduce over StableLM-1.6B's embedding and
+    # first layer, each pod its own gradients and residuals
+    scfg = get_config("stablelm-1.6b")
+    scfg = dataclasses.replace(scfg.reduced() if r.small else scfg,
+                               n_layers=1)
+    sp = registry.get_model(scfg).init(
+        torch.Generator(device=dev).manual_seed(MESH_SEED + 5), dev)
+    shapes = {key: tuple(v.shape) for key, v in leaves_with_path(
+        {"embed": sp["embed"], "layer0": sp["layers"][0]})}
+    del sp
+    grads = {key: torch.randn((2,) + sh, generator=g, device=dev)
+             for key, sh in shapes.items()}
+    resid = {key: torch.randn((2,) + sh, generator=g, device=dev) * 0.01
+             for key, sh in shapes.items()}
+
+    def cross(gr, rs):
+        st = grad_compress.CompressionState(
+            residual={key: v[0] for key, v in rs.items()})
+        return grad_compress.crosspod_allreduce_compressed(
+            {key: v[0] for key, v in gr.items()}, st, "pod")
+
+    (red, new), *t = r.timed(lambda: shard_map(
+        cross, r.meshes["pod"], in_specs=(P("pod"), P("pod")),
+        out_specs=(P(), P()))(grads, resid))
+    # every rank: its pod's residual is the one-rank formula's
+    mine = r.meshes["pod"].get_local_rank("pod")
+    own = grad_compress.compress_grads(
+        {key: v[mine] for key, v in grads.items()},
+        grad_compress.CompressionState(
+            residual={key: v[mine] for key, v in resid.items()}))[2]
+    r.digests["crosspod"] = sum(bits_digest(v) for v in red.values())
+    r.digests["crosspod own residual"] = all(
+        torch.equal(new.residual[key], own.residual[key]) for key in shapes)
+    if r.rank == 0:
+        pods = [grad_compress.compress_grads(
+            {key: v[i] for key, v in grads.items()},
+            grad_compress.CompressionState(
+                residual={key: v[i] for key, v in resid.items()}))
+            for i in range(2)]
+        same = r.digests["crosspod own residual"] and all(torch.equal(
+            red[key], (pods[0][0][key].to(torch.int32)
+                       + pods[1][0][key].to(torch.int32)).float()
+            * ((pods[0][1][key] + pods[1][1][key]) / 2) / 2)
+            for key in shapes)
+        n_el = sum(int(np.prod(sh)) for sh in shapes.values())
+        r.gate(same, "mesh crosspod_allreduce_compressed: differs from "
+                     "the formula on one rank")
+        r.note(f"mesh crosspod_allreduce_compressed on pod 2 x data 2: "
+               f"{len(shapes)} leaves of {scfg.name}'s embedding and layer 0 "
+               f"({n_el} values a pod), reduced gradients and residuals bit "
+               f"for bit the one-rank formula: {same}; {r.time_note(*t)}")
+    del grads, resid, red, new, own
+
+    # the GPipe schedule on 4 stages at the reference's toy widths
+    stages, micro, width, mb = sizes["pipe"]
+    pcfg = pipeline.PipelineConfig(stages, micro, axis_name="stage")
+    stacked, stage_fn = pipeline.make_pipelined_mlp(
+        pcfg, [width] * (2 * stages + 1), g, dev)
+    xs = torch.randn(micro, mb, width, generator=g, device=dev)
+    outs, *t = r.timed(lambda: shard_map(
+        lambda prm, v: pipeline.pipeline_apply(stage_fn, pcfg, prm[0], v),
+        r.meshes["stage"], in_specs=(P("stage"), P()),
+        out_specs=P("stage"))(stacked, xs))
+    got = outs.reshape(stages, micro, mb, width)[-1]
+    want = pipeline.reference_apply(stacked, xs)
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=MESH_TOL, atol=MESH_TOL))
+    r.digests["pipeline"] = bits_digest(got)
+    r.gate(ok, f"mesh pipeline_apply: max_abs_err={err:.4g}")
+    r.note(f"mesh pipeline_apply {stages} stages x {micro} microbatches "
+           f"({pcfg.n_ticks} ticks, bubble {pcfg.bubble_fraction:.3f}), "
+           f"width {width}: last stage vs reference_apply max_abs_err="
+           f"{err:.4g} (rtol=atol {MESH_TOL}) ok={ok}; {r.time_note(*t)}")
+
 
 def x_for(sr_name, n, gen, dev, kind="int"):
     """A vector in the semiring's domain; min_plus gets some +inf."""
@@ -4865,7 +5503,6 @@ def main(argv=None) -> int:
                 p.execute_many(torch.ones(2, 256, device=dev))
     else:
         log("device cpu rehearsal: plain versions only, no kernels")
-
     # -- small inputs against the CPU path --------------------------------------
     for fam, gen in (("fd", fd_matrix), ("rmat", rmat_matrix)):
         here = drive(drivers, fam, gen(1024, device=dev), None, dev, True)
@@ -4917,10 +5554,33 @@ def main(argv=None) -> int:
 
     # -- train: StableLM-1.6B through the port's train step -----------------
     t0 = time.perf_counter()
-    train_counts = run_train(args, dev, K)
+    # the mesh phase's ranks start once the train phase's timed steps are
+    # done, and wait: their imports and CUDA contexts (11-12.5 s a process
+    # on the card's machine) overlap its untimed checks, and no timing
+    worlds = []
+
+    def start_world():
+        from repro_torch.launch.mesh import World
+        worlds.append(World(MESH_RANKS, dev))
+        atexit.register(worlds[0].close, wait=False)
+
+    train_counts = run_train(args, dev, K, start_world)
     log(f"train phase_s={time.perf_counter() - t0:.1f}")
     if dev.type == "cuda":
         log(f"train peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # -- mesh: the MoE paths and collectives on four ranks -------------------
+    t0 = time.perf_counter()
+    try:
+        mesh_counts = run_mesh(args, dev, worlds[0])
+    finally:
+        worlds[0].close()
+    log(f"mesh phase_s={time.perf_counter() - t0:.1f}")
+    if dev.type == "cuda":
+        log(f"mesh peak device memory (this process) "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4990,7 +5650,7 @@ def main(argv=None) -> int:
     compare_pagerank("dia", dres, dplain)
     phase_counts = {"attention": attn_counts, "lm": lm_counts,
                     "lm_hybrid": hybrid_counts, "lm_encdec": encdec_counts,
-                    "train": train_counts,
+                    "train": train_counts, "mesh": mesh_counts,
                     "main": counts, "dia": dia_counts}
 
     # -- the reordering, per-call and BELL paths ------------------------------

@@ -49,9 +49,13 @@ def coo_order(rows: np.ndarray, cols: np.ndarray, n_cols: int,
     `device`)."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
+    _check_cols(cols, n_cols)
+    return stable_argsort(rows * max(n_cols, 1) + cols, device)
+
+
+def _check_cols(cols: np.ndarray, n_cols: int) -> None:
     if cols.size and (cols.min() < 0 or cols.max() >= max(n_cols, 1)):
         raise ValueError(f"column indices out of range for n_cols={n_cols}")
-    return stable_argsort(rows * max(n_cols, 1) + cols, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,24 +137,32 @@ class CSR:
     def from_coo(rows, cols, vals, n_rows, n_cols, dtype=np.float32,
                  device=None) -> "CSR":
         """Canonical (row, col)-sorted CSR; duplicates are kept, in
-        stream order, exactly as the reference keeps them."""
+        stream order, exactly as the reference keeps them.  The sort,
+        the gathers and the row counts run on `device`."""
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals, dtype=dtype)
         if rows.size and (rows.min() < 0 or rows.max() >= n_rows):
             raise ValueError(f"row indices out of range for n_rows={n_rows}")
+        _check_cols(cols, n_cols)
         dev = resolve_device(device)
-        order = coo_order(rows, cols, n_cols, dev)
-        rows, cols, vals = rows[order], cols[order], vals[order]
-        indptr = np.zeros(n_rows + 1, dtype=np.int64)
-        indptr[1:] = np.bincount(rows, minlength=n_rows)[:n_rows]
-        indptr = np.cumsum(indptr, dtype=np.int64)
-        if indptr[-1] < np.iinfo(np.int32).max:
-            indptr = indptr.astype(np.int32)
-        return CSR(data=to_tensor(vals, dev),
-                   indices=to_tensor(cols.astype(np.int32), dev),
-                   indptr=to_tensor(indptr, dev),
-                   n_rows=int(n_rows), n_cols=int(n_cols))
+        return csr_from_coo_tensors(
+            *(to_tensor(a, dev) for a in (rows, cols, vals)), n_rows, n_cols)
+
+
+def csr_from_coo_tensors(r: torch.Tensor, c: torch.Tensor, v: torch.Tensor,
+                         n_rows: int, n_cols: int) -> CSR:
+    """`CSR.from_coo` of int64 coordinates (in range) and values already
+    on one device, as torch ops there: one stable sort (its permutation
+    is unique, so it is `np.lexsort`'s), exact gathers and integer row
+    counts; an int32 `indptr` unless nnz >= 2^31."""
+    order = torch.sort(r * max(n_cols, 1) + c, stable=True).indices
+    counts = torch.bincount(r, minlength=n_rows)[:n_rows]
+    indptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    if int(indptr[-1]) < np.iinfo(np.int32).max:
+        indptr = indptr.int()
+    return CSR(data=v[order], indices=c[order].int(), indptr=indptr,
+               n_rows=int(n_rows), n_cols=int(n_cols))
 
 
 def csr_from_numpy(data, indices, indptr, n_rows: int, n_cols: int,

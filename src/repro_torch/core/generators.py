@@ -3,16 +3,18 @@
 Counterpart of `repro.core.generators`: the same numpy random streams
 in the same order, so the same seed gives the same arrays -- including
 the duplicate coordinates `fd_matrix` emits when the grid side
-degenerates to 1 or 2 (ROADMAP C1).  Generation is host-side numpy; the
-CSR lands on `device`.
+degenerates to 1 or 2 (ROADMAP C1).  The random draws are host-side
+numpy; the CSR lands on `device` (R-MAT's edges, sort and sums run
+there).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from repro_torch.device import resolve_device, stable_argsort
+from repro_torch.device import resolve_device, stable_argsort, to_tensor
 
-from .formats import CSR
+from .formats import CSR, csr_from_coo_tensors
 
 # Graph500-style R-MAT quadrant probabilities.
 RMAT_A, RMAT_B, RMAT_C, RMAT_D = 0.57, 0.19, 0.19, 0.05
@@ -47,53 +49,67 @@ def rmat_edges(n_rows: int, n_edges: int, seed: int = 0,
                a: float = RMAT_A, b: float = RMAT_B,
                c: float = RMAT_C) -> tuple[np.ndarray, np.ndarray]:
     """R-MAT edge list (int64 rows, cols), one quadrant draw per level."""
+    rows, cols = _rmat_edges(n_rows, n_edges, seed, a, b, c,
+                             torch.device("cpu"))
+    return rows.numpy(), cols.numpy()
+
+
+def _rmat_edges(n_rows, n_edges, seed, a, b, c, dev):
+    """`rmat_edges` on `dev`: the host's uniform draws (the reference's
+    stream), the quadrant bits there."""
     if n_rows <= 0 or n_rows & (n_rows - 1):
         raise ValueError("R-MAT needs a power-of-two dimension")
     levels = int(np.log2(n_rows))
     rng = np.random.default_rng(seed)
-    rows = np.zeros(n_edges, dtype=np.int64)
-    cols = np.zeros(n_edges, dtype=np.int64)
+    rows = torch.zeros(n_edges, dtype=torch.int64, device=dev)
+    cols = torch.zeros(n_edges, dtype=torch.int64, device=dev)
     ab, abc = a + b, a + b + c
     for _ in range(levels):
-        r = rng.random(n_edges)
+        r = torch.from_numpy(rng.random(n_edges)).to(dev)
         go_down = r >= ab                              # quadrants c, d
         go_right = ((r >= a) & (r < ab)) | (r >= abc)  # quadrants b, d
-        rows <<= 1
-        rows |= go_down
-        cols <<= 1
-        cols |= go_right
+        rows = (rows << 1) | go_down
+        cols = (cols << 1) | go_right
     return rows, cols
 
 
 def rmat_matrix(n_rows: int, nnz_per_row: int = 8, dtype=np.float32,
                 seed: int = 0, permute: bool = True, device=None) -> CSR:
     """R-MAT matrix with ~nnz_per_row nonzeros per row; duplicate edges
-    summed in stream order; rows and columns randomly permuted."""
+    summed in stream order; rows and columns randomly permuted.  The
+    draws are the host's; the edges, the sort and the sums run on
+    `device`."""
     dev = resolve_device(device)
     n_edges = n_rows * nnz_per_row
-    rows, cols = rmat_edges(n_rows, n_edges, seed=seed)
+    rows, cols = _rmat_edges(n_rows, n_edges, seed, RMAT_A, RMAT_B, RMAT_C,
+                             dev)
     if permute:
         rng = np.random.default_rng(seed + 1)
-        rperm = rng.permutation(n_rows)
-        cperm = rng.permutation(n_rows)
+        rperm = to_tensor(rng.permutation(n_rows), dev)
+        cperm = to_tensor(rng.permutation(n_rows), dev)
         rows = rperm[rows]
         cols = cperm[cols]
     rng2 = np.random.default_rng(seed + 2)
-    vals = rng2.uniform(0.5, 1.5, size=n_edges).astype(dtype)
+    vals = to_tensor(rng2.uniform(0.5, 1.5, size=n_edges).astype(dtype), dev)
     key = rows * n_rows + cols
-    order = stable_argsort(key, dev)
+    order = torch.sort(key, stable=True).indices
     key, rows, cols, vals = key[order], rows[order], cols[order], vals[order]
-    uniq_mask = np.empty(len(key), dtype=bool)
-    uniq_mask[0] = True
-    np.not_equal(key[1:], key[:-1], out=uniq_mask[1:])
-    seg_id = np.cumsum(uniq_mask) - 1
+    uniq = torch.ones(n_edges, dtype=torch.bool, device=dev)
+    uniq[1:] = key[1:] != key[:-1]
     # duplicates summed in stream order, as the reference's np.add.at over
     # every edge sums them: the first edge of a key seeds its sum (0 + v
-    # is v), the few repeats are added after it in order
-    merged_vals = vals[uniq_mask].astype(dtype)
-    np.add.at(merged_vals, seg_id[~uniq_mask], vals[~uniq_mask])
-    return CSR.from_coo(rows[uniq_mask], cols[uniq_mask], merged_vals,
-                        n_rows, n_rows, dtype=dtype, device=dev)
+    # is v), the few repeats are added after it, one rank at a time
+    start = torch.nonzero(uniq).squeeze(1)
+    count = torch.diff(start, append=start.new_full((1,), n_edges))
+    merged = vals[start]
+    multi = torch.nonzero(count > 1).squeeze(1)
+    first, reps, acc = start[multi], count[multi], merged[multi]
+    for j in range(1, int(reps.max()) if multi.numel() else 1):
+        more = reps > j
+        acc[more] += vals[first[more] + j]
+    merged[multi] = acc
+    return csr_from_coo_tensors(rows[uniq], cols[uniq], merged, n_rows,
+                                n_rows)
 
 
 def banded_matrix(n_rows: int, bandwidth: int, nnz_per_row: int = 9,

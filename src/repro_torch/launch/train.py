@@ -11,7 +11,8 @@ N and the Supervisor restores from the last committed checkpoint and
 replays data deterministically.  Checkpoints have the reference's
 layout, so `repro.checkpoint.manager.CheckpointManager.restore` reads
 this launcher's and this launcher resumes from the reference's.  One
-device: `--model-parallel` other than 1 waits for the distributed slice.
+device: `--model-parallel` other than 1 waits for training on a mesh
+(ROADMAP A11, slice 3f).
 """
 from __future__ import annotations
 
@@ -77,8 +78,8 @@ def main(argv=None):
     if args.model_parallel != 1:
         raise NotImplementedError(
             f"--model-parallel {args.model_parallel}: the port trains on "
-            "one device; model-parallel meshes wait for ROADMAP A11, "
-            "slice 3c (distributed)")
+            "one device; training on a mesh, with gradients through the "
+            "collectives, waits for ROADMAP A11, slice 3f")
 
     dev = resolve_device(args.device)
     cfg, api, tc = build(args)

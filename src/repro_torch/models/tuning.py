@@ -15,13 +15,22 @@ Two knobs change what the port runs on one device:
                       (`torch.utils.checkpoint`), so the (B, chunk, di,
                       ds) tensors are never saved
 
-The others change nothing on one device, in the reference either:
-`sequence_parallel`, `moe_combine_bf16`, `moe_all_to_all`,
-`moe_decode_weight_stationary` and `rwkv_batch_shard` act only under a
-mesh (the reference's `constrain` is the identity without one and its
-`apply_moe_auto` takes `apply_moe`), and `attn_chunk_remat`,
-`causal_chunk_unroll` and `kv_onehot_write` pick between lowerings of
-the same function in JAX.  The port reads none of them.
+Three more act under a mesh (`distributed.api.use_mesh`), where the
+port reads them as the reference does (`models/moe.py`):
+
+  moe_combine_bf16              `apply_moe_sharded` sums its combine
+                                over 'model' in bfloat16, not float32
+  moe_all_to_all                `apply_moe_auto` takes `apply_moe_a2a`
+                                (when the sequence splits over 'model')
+                                instead of `apply_moe_sharded`
+  moe_decode_weight_stationary  `apply_moe_auto` takes
+                                `apply_moe_decode` for one-token steps
+
+`sequence_parallel` and `rwkv_batch_shard` only pick the specs of
+`constrain`, which moves no values (every rank holds the global
+activations), and `attn_chunk_remat`, `causal_chunk_unroll` and
+`kv_onehot_write` pick between lowerings of the same function in JAX.
+The port reads none of these five.
 """
 from __future__ import annotations
 

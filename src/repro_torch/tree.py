@@ -71,18 +71,31 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 def map_with_path(fn: Callable[[str, Any], Any], tree: Any,
                   prefix: str = "") -> Any:
     """tree_map with each leaf's key string as fn's first argument."""
+    return _map_paths(lambda path, _, leaf: fn(path, leaf), tree, prefix, ())
+
+
+def map_with_keys(fn: Callable[[tuple, Any], Any], tree: Any) -> Any:
+    """tree_map with each leaf's path as fn's first argument: a tuple of
+    dict keys, NamedTuple field names and sequence indices (what JAX's
+    DictKey, GetAttrKey and SequenceKey entries hold)."""
+    return _map_paths(lambda _, keys, leaf: fn(keys, leaf), tree, "", ())
+
+
+def _map_paths(fn, tree, prefix: str, keys: tuple):
+    """The walk of both: fn(key string, key tuple, leaf)."""
     if isinstance(tree, dict):
-        return {k: map_with_path(fn, v, f"{prefix}[{k!r}]")
+        return {k: _map_paths(fn, v, f"{prefix}[{k!r}]", keys + (k,))
                 for k, v in tree.items()}
     if is_namedtuple(tree):
-        return type(tree)(*(map_with_path(fn, v, f"{prefix}.{name}")
+        return type(tree)(*(_map_paths(fn, v, f"{prefix}.{name}",
+                                       keys + (name,))
                             for name, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_with_path(fn, v, f"{prefix}[{i}]")
+        return type(tree)(_map_paths(fn, v, f"{prefix}[{i}]", keys + (i,))
                           for i, v in enumerate(tree))
     if tree is None:
         return None
-    return fn(prefix, tree)
+    return fn(prefix, keys, tree)
 
 
 def structure(tree: Any) -> str:
@@ -105,4 +118,4 @@ def structure(tree: Any) -> str:
 
 
 __all__ = ["is_namedtuple", "leaves_with_path", "leaves", "unflatten",
-           "tree_map", "map_with_path", "structure"]
+           "tree_map", "map_with_path", "map_with_keys", "structure"]

@@ -346,8 +346,9 @@ MESH_ONLY = {
 
 def test_mesh_only_knob_changes_nothing_on_one_device(knob):
     """On one device (no mesh) the reference's logits are the same with
-    the knob on and off, and so are the port's, which reads none of them;
-    the two agree within `TOL`."""
+    the knob on and off, and so are the port's (its MoE knobs act only
+    under a mesh, tests/test_torch_mesh_moe.py); the two agree within
+    `TOL`."""
     arch, seq = MESH_ONLY[knob]
     rc, tc = configs(arch, "float32")
     ref, port = params(arch, "float32")

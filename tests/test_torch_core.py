@@ -14,7 +14,7 @@ from repro.plan import fingerprint as rfp
 from repro_torch.core import formats as tf
 from repro_torch.core import generators as tg
 from repro_torch.core import structure as ts
-from repro_torch.device import to_numpy
+from repro_torch.device import to_numpy, to_tensor
 from repro_torch.plan import fingerprint as tfp
 
 
@@ -60,6 +60,45 @@ def test_from_coo_refuses_out_of_range_coordinates():
         tf.CSR.from_coo([0, 4], [0, 1], [1.0, 1.0], 4, 4, device="cpu")
     with pytest.raises(ValueError):
         tf.CSR.from_coo([0, 1], [0, 4], [1.0, 1.0], 4, 4, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["duplicates", "empty rows", "no entries",
+                                  "one column", "bfloat16"])
+def test_from_coo_card_steps_equal_the_host_steps(case):
+    """`CSR.from_coo`'s torch steps (the same on the card; here on the
+    CPU) build the reference's CSR byte for byte: dtypes too,
+    duplicates in stream order; `csr_from_coo_tensors` over the same
+    tensors gives the same bytes."""
+    rng = np.random.default_rng(17)
+    n_rows, n_cols, nnz = {"duplicates": (40, 30, 900),
+                           "empty rows": (500, 64, 200),
+                           "no entries": (8, 8, 0), "one column": (64, 1, 300),
+                           "bfloat16": (40, 30, 900)}[case]
+    rows = rng.integers(0, n_rows, nnz)
+    cols = rng.integers(0, n_cols, nnz)
+    vals = rng.normal(size=nnz).astype(np.float32)
+    dtype = np.float32
+    if case == "bfloat16":
+        import ml_dtypes
+        dtype = ml_dtypes.bfloat16
+    got = tf.CSR.from_coo(rows, cols, vals, n_rows, n_cols, dtype=dtype,
+                          device="cpu")
+    ref = rf.CSR.from_coo(rows, cols, vals, n_rows, n_cols, dtype=dtype)
+    for name in ("data", "indices", "indptr"):
+        a, b = np.asarray(getattr(ref, name)), getattr(got, name)
+        if case == "bfloat16" and name == "data":   # numpy reads no
+            assert b.dtype == torch.bfloat16         # torch bf16: words
+            a, b = a.view(np.uint16), b.view(torch.int16).numpy().view(
+                np.uint16)
+        else:
+            b = b.numpy()
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    direct = tf.csr_from_coo_tensors(
+        torch.from_numpy(rows), torch.from_numpy(cols),
+        to_tensor(np.asarray(vals, dtype), "cpu"), n_rows, n_cols)
+    for name in ("data", "indices", "indptr"):
+        a, b = getattr(got, name), getattr(direct, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
 def _reports_equal(ref_csr, port, **kw):

@@ -1496,3 +1496,50 @@ def test_whisper_float32_gate_at_full_width(cuda):
     assert counts["flash_attention"] == 12
     assert counts["paged_attention"] == 8 * 8
     assert sum(plain_counts.values()) == 0
+
+
+@pytest.mark.parametrize("family", ["fd", "rmat", "banded"])
+def test_generators_build_the_same_bytes_on_the_card(cuda, family):
+    """`CSR.from_coo` sorts, gathers and counts rows on the card: the
+    generators' CSR is the CPU's byte for byte."""
+    from repro_torch.core import generators as tg
+
+    make = {"fd": lambda d: tg.fd_matrix(4096, device=d),
+            "rmat": lambda d: tg.rmat_matrix(4096, seed=3, device=d),
+            "banded": lambda d: tg.banded_matrix(4096, 40, device=d)}[family]
+    got, want = make(cuda), make("cpu")
+    for name in ("data", "indices", "indptr"):
+        a, b = getattr(got, name).cpu(), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+# ---------------------------------------------------------------------------
+# the mesh slice: four ranks share the card over gloo
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_moe_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: four ranks share it over gloo (the "
+                    "CPU gloo worlds are tests/test_torch_mesh_moe.py)")
+    from _mesh_worlds import card_moe_world as world
+
+    from repro_torch.launch.mesh import launch
+    return launch(world, 4, device="cuda")
+
+
+@pytest.mark.parametrize("path,mesh", [
+    ("sharded", "1x4"), ("a2a", "1x4"), ("sharded", "2x2"), ("a2a", "2x2"),
+    ("decode", "2x2")])
+def test_mesh_moe_path_on_four_ranks_of_the_card(card_moe_world, path,
+                                                 mesh):
+    """float32 at capacity factor 8 (no drops): each path within 1e-5 of
+    max |y| of the global layer (decode, whose combine is a bfloat16
+    psum, within 2^-7), every rank the same bits, a replay bit for
+    bit."""
+    key = f"{path} {mesh}"
+    err, top, replay = card_moe_world[0][key]
+    rtol = 2.0 ** -7 if path == "decode" else 1e-5
+    assert err <= rtol * top, (err, top)
+    assert replay
+    assert all(r[key] == card_moe_world[0][key] for r in card_moe_world)

@@ -113,7 +113,26 @@ SLICE_MODULES = {
                                  "ShapeConfig", "SHAPES",
                                  "applicable_shapes"),
     "repro_torch.configs.spmv_paper": ("SpMVExperimentConfig", "CONFIG"),
-    "repro_torch.distributed.api": ("constrain",),
+    "repro_torch.distributed.api": ("constrain", "current_mesh", "use_mesh",
+                                    "resolve_axis", "logical_spec",
+                                    "shard_map", "P", "mesh_dict", "psum",
+                                    "pmean", "pmax", "all_gather",
+                                    "all_to_all", "ppermute", "psum_scatter",
+                                    "axis_index", "axis_size", "transport"),
+    # the mesh slice: meshes, shard_map, sharding rules, collectives,
+    # the pipeline schedule and the MoE mesh paths
+    "repro_torch.launch.mesh": ("make_mesh", "make_production_mesh",
+                                "make_local_mesh", "mesh_dict", "launch",
+                                "world_plan", "TIMEOUT"),
+    "repro_torch.distributed.sharding": (
+        "spec_for_leaf", "param_specs", "opt_state_specs", "batch_specs",
+        "cache_specs", "block_of", "spec_axes"),
+    "repro_torch.distributed.collectives": (
+        "ring_allgather_matmul", "lse_merge_attention",
+        "reduce_scatter_grads", "crosspod_allreduce_compressed"),
+    "repro_torch.distributed.pipeline": ("PipelineConfig", "pipeline_apply",
+                                         "make_pipelined_mlp",
+                                         "reference_apply"),
     "repro_torch.models.common": (
         "apply_norm", "apply_rope", "apply_attention", "apply_mlp",
         "_qk_norm", "_sdpa_chunked", "lm_loss", "init_norm",
@@ -188,7 +207,7 @@ PACKAGE_EXPORTS = {
         "graph_gap_report", "plan_cache_report"),
     "repro_torch.plan": ("save_plan", "load_plan", "plan_state",
                          "plan_from_state", "harvest"),
-    "repro_torch.distributed": ("row_mesh", "spmv_row_sharded"),
+    "repro_torch.distributed": ("api", "row_mesh", "spmv_row_sharded"),
     "repro_torch.serve": ("Engine", "EngineConfig", "make_engine",
                           "Request", "Scheduler"),
     "repro_torch.models": ("ModelAPI", "get_model", "whisper"),

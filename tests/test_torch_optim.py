@@ -213,8 +213,11 @@ def test_compression_matches_the_reference():
 
 
 def test_crosspod_allreduce_waits_for_the_distributed_slice():
+    """The all-reduce runs inside a shard_map body over the mesh's pod
+    axis (held against the reference in tests/test_torch_collectives.py);
+    outside one the axis is unbound, as in JAX."""
     g = {"g": torch.zeros(4)}
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NameError, match="unbound axis name: 'pod'"):
         crosspod_allreduce_compressed(g, compress_init(g))
 
 
