@@ -202,6 +202,23 @@ kernels/csrc/` and then runs these phases, one output line per step:
            each rank's own ring position, within its bound on every
            rank).  A rank that raises or a collective that times out
            fails the run;
+  roofline each step an earlier phase timed -- StableLM-1.6B's train
+           step (8 x 512, no remat), Granite-8B's, Jamba's, RWKV6's and
+           Whisper's decode steps (8 slots; a 1,024-token cache, or 448
+           tokens over 1,500 frames) -- at that phase's config and depth,
+           its plan built by `launch.steps.build_plan` on one rank and
+           traced once on the CPU (fake tensors, the plain path;
+           `roofline.op_costs`) in a process started before the build:
+           counted matmul and total FLOPs and bytes, their bounds at the
+           card's rates (989 TFLOP/s, 3.35 TB/s) and `count_ratio`, the
+           larger over the device ms the phase measured; the step's
+           floor (the inputs it reads once, the donated ones written
+           back, no cache or activation; the train step's weights'
+           matmuls) and `share`, the floor over those ms; beside the
+           card's name and power limit.  Fails unless the StableLM
+           step's and the Granite decode step's matmul FLOPs equal
+           closed forms of the config (36,593,121,361,920 for the train
+           step);
   main     the main path at 2^22 rows: `fd_matrix` and `rmat_matrix`,
            each of the four graph drivers through the kernels, with every
            launch count set to 0 just before and read just after; then
@@ -519,6 +536,10 @@ GRAPH_SPEC = {"l2_bytes": 16384, "l3_bytes": 65536}   # graph_bench's cell
 SHARDS = 4                          # row slabs of the sharded phase
 
 FAILURES: list = []
+#: device ms a step of each step the phases time, for the roofline phase
+STEP_MS: dict = {}
+#: the card's name and power limit, as nvidia-smi gives them
+CARD = ["not measured"]
 
 
 def log(*parts) -> None:
@@ -1924,6 +1945,7 @@ def run_lm(args, dev, K, errs, times):
                         if any(w in ev.key for w in PLAIN_OPS)})
         paged = {short_kernel(k): c for k, (c, _) in recs.items()
                  if "paged_" in k}
+        STEP_MS["lm decode"] = device / n
         log(f"lm trace decode steps {LM_TRACE[0]}-{LM_TRACE[1]}: wall_ms="
             f"{wall_ms / n:.3f} device_ms={device / n:.3f} "
             + " ".join(f"{k}_ms={v / n:.3f}" for k, v in split.items())
@@ -2227,6 +2249,7 @@ def decode_window(tag, eng, dev, toks) -> dict:
             recs[ev.key] = (ev.count, t)
     split = {k: v / n for k, v in lm_split(recs).items()}
     device = sum(split.values())
+    STEP_MS[f"{tag} decode"] = device
     atomics = sorted({short_kernel(k) for k in recs
                       if any(w in k.lower() for w in ATOMIC_NAMES)})
     top = sorted(recs.items(), key=lambda kv: -kv[1][1])[:6]
@@ -2909,24 +2932,34 @@ def encdec_window(cfg, api, params, cache, tok, dev, kv_rows) -> None:
     if dev.type != "cuda":
         log("encdec trace: not measured (no card)")
         return
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     n = ENCDEC_WINDOW
     c = cache
     logits, c = api.decode_step(params, c, tok)
     sync(dev)
+    # a warm-up step under the tracer, its records dropped (`schedule`),
+    # so that the window starts with the tracer running: a window
+    # without it once kept 2,038 of a step's 2,048 kernels
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+                 record_shapes=True, schedule=schedule(
+                     wait=0, warmup=1, active=1, repeat=1)) as prof:
+        logits, c = api.decode_step(params, c, tok)
+        sync(dev)
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(n):
             logits, c = api.decode_step(params, c, tok)
         sync(dev)
         wall_ms = 1e3 * (time.perf_counter() - t0)
+        prof.step()
     # one pass over the trace: kernels carry no shapes, so grouping by
     # shape keeps one entry each, and splits the CPU ops by theirs
     avgs = prof.key_averages(group_by_input_shape=True)
     recs, cross_us = {}, 0.0
     for ev in avgs:
+        if ev.key.startswith("ProfilerStep"):
+            continue        # the schedule's range: the window's whole span
         t = getattr(ev, "self_device_time_total",
                     getattr(ev, "self_cuda_time_total", 0.0))
         if t > 0 and ev.count and \
@@ -2940,6 +2973,7 @@ def encdec_window(cfg, api, params, cache, tok, dev, kv_rows) -> None:
     split = {k: v / n for k, v in lm_split(recs).items()}
     cross = cross_us / 1e3 / n
     device = sum(split.values())
+    STEP_MS["encdec decode"] = device
     plain = sorted({ev.key for ev in avgs
                     if any(w in ev.key for w in PLAIN_OPS)})
     paged = {short_kernel(k): cnt for k, (cnt, _) in recs.items()
@@ -3040,7 +3074,6 @@ def run_train(args, dev, K, after_timed=lambda: None):
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import train as launch_train
-    from repro_torch.launch.steps import optimizer_for
     from repro_torch.models import registry
     from repro_torch.optim import OptimizerConfig, make_optimizer
     from repro_torch.train.loop import (TrainConfig, init_train_state,
@@ -3054,8 +3087,7 @@ def run_train(args, dev, K, after_timed=lambda: None):
     if args.cpu_rehearsal:
         cfg = cfg.reduced()
     api = registry.get_model(cfg)
-    opt = dataclasses.replace(optimizer_for(cfg), lr=3e-4, warmup_steps=2)
-    tc = TrainConfig(optimizer=opt, remat="none", accum_steps=1)
+    tc = train_config(cfg)
 
     # -- (a) full size: 10 steps, the profiler over steps 6-8 -------------
     t0 = time.perf_counter()
@@ -3069,7 +3101,7 @@ def run_train(args, dev, K, after_timed=lambda: None):
         f"heads={cfg.n_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} {cfg.dtype} "
         f"params={n_params} (param_count(), norms left out: "
         f"{cfg.param_count():.0f}) "
-        f"optimizer={opt.name} state={state_bytes / 2 ** 30:.2f} GiB "
+        f"optimizer={tc.optimizer.name} state={state_bytes / 2 ** 30:.2f} GiB "
         f"batch={batch}x{seq} remat={tc.remat} init_s="
         f"{time.perf_counter() - t0:.2f}")
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
@@ -3112,11 +3144,19 @@ def run_train(args, dev, K, after_timed=lambda: None):
     flops = 6 * n_params * tokens + \
         12 * cfg.n_layers * batch * seq * seq * cfg.d_model
     tflops = flops / (med / 1e3) / 1e12
+    # the matmuls the step runs (the roofline phase counts them on its
+    # trace): N's embedding is a lookup, not a matmul
+    mm = train_matmul_flops(cfg, batch, seq)
+    mm_tflops = mm / (med / 1e3) / 1e12
     log(f"train full: median_step_ms={med:.2f} (steps outside the "
         f"profiler window, first included) tokens_per_s="
         f"{tokens / (med / 1e3):.1f} model_tflops={tflops:.1f} "
         f"(6·N·tokens + 12·L·B·S²·d = {flops:.4e} a step; "
         f"{tflops / TRAIN_PEAK_TFLOPS:.3f} of {TRAIN_PEAK_TFLOPS:.0f}) "
+        f"matmul_flops={mm} matmul_tflops={mm_tflops:.1f} ("
+        f"{mm_tflops / TRAIN_PEAK_TFLOPS:.3f} of "
+        f"{TRAIN_PEAK_TFLOPS:.0f}; 6·W·tokens + 12·L·B·S²·d, W the "
+        f"matmul weights: N less the embedding and the norms) "
         + (f"peak_gib={peak:.2f} (steps 0-{TRAIN_REPEAT - 1})"
            if peak is not None
            else "peak_gib=not measured"))
@@ -3127,6 +3167,7 @@ def run_train(args, dev, K, after_timed=lambda: None):
         n = TRAIN_TRACE[1] - TRAIN_TRACE[0] + 1
         split, busy = train_split(prof)
         device = sum(split.values())
+        STEP_MS["train step"] = device / 1e3 / n
         log(f"train trace steps {TRAIN_TRACE[0]}-{TRAIN_TRACE[1]}: "
             f"wall_ms={wall_ms / n:.3f} device_ms={device / 1e3 / n:.3f} "
             + " ".join(f"{k}_ms={v / 1e3 / n:.3f}" for k, v in split.items())
@@ -3241,6 +3282,209 @@ def run_train(args, dev, K, after_timed=lambda: None):
     check(not any(moved.values()), f"train: attention kernels launched "
           f"{moved} on the training path")
     return moved
+
+
+def train_config(cfg):
+    """The train phase's TrainConfig: AdamW at lr 3e-4 after 2 warmup
+    steps, no remat, one microbatch."""
+    from repro_torch.launch.steps import optimizer_for
+    from repro_torch.train.loop import TrainConfig
+    opt = dataclasses.replace(optimizer_for(cfg), lr=3e-4, warmup_steps=2)
+    return TrainConfig(optimizer=opt, remat="none", accum_steps=1)
+
+
+def matmul_weights(cfg) -> int:
+    """W: the weights a dense decoder's step multiplies by -- each
+    layer's q, k, v and o projections and its MLP, and the head."""
+    d, hq, hkv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    mlp = (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff
+    return cfg.n_layers * (2 * d * hq + 2 * d * hkv + mlp) + d * cfg.vocab
+
+
+def train_matmul_flops(cfg, batch, seq) -> int:
+    """The plain train step's matmul FLOPs (no remat): 2·W a token
+    forward and twice that backward, and QK^T and PV over every (query,
+    key) pair of a sequence (the plain attention masks, it skips
+    nothing): 4·B·S²·H·hd a layer forward, again x3 with the backward."""
+    t, hq = batch * seq, cfg.n_heads * cfg.hd
+    return 6 * t * matmul_weights(cfg) \
+        + 12 * cfg.n_layers * batch * seq * seq * hq
+
+
+def decode_matmul_flops(cfg, batch, s_max) -> int:
+    """The plain decode step's matmul FLOPs: 2·W a sequence, and QK^T
+    and PV of one query over all s_max cache rows a layer."""
+    hq = cfg.n_heads * cfg.hd
+    return 2 * batch * matmul_weights(cfg) \
+        + 4 * cfg.n_layers * batch * s_max * hq
+
+
+# ---------------------------------------------------------------------------
+# roofline: the timed steps' counted costs against the card's roofline
+# ---------------------------------------------------------------------------
+
+ROOFLINE_WAIT_S = 600               # for the traces, after the mesh phase
+
+
+def roofline_steps(args):
+    """(name, config, shape, plan keywords) of each step a phase times,
+    at that phase's config, depth and shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+
+    def cut(arch, layers=None):
+        full = get_config(arch)
+        cfg = full.reduced() if args.cpu_rehearsal else full
+        return cfg if layers is None else \
+            dataclasses.replace(cfg, n_layers=min(layers, cfg.n_layers))
+
+    slots, ctx = LM_ENGINE["max_batch"], LM_ENGINE["max_context"]
+    train = cut(TRAIN_ARCH)
+    whisper = cut(ENCDEC_ARCH)
+    frames = 150 if args.cpu_rehearsal else ENCDEC_FRAMES
+    return [
+        ("train step", train, ShapeConfig(
+            "smoke", args.train_seq, args.train_batch, "train"),
+         {"tc": train_config(train)}),
+        ("lm decode", cut(LM_ARCH, LM_LAYERS),
+         ShapeConfig("smoke", ctx, slots, "decode"), {}),
+        ("hybrid decode", dataclasses.replace(
+            cut(HYBRID_ARCH), n_layers=HYBRID_LAYERS),
+         ShapeConfig("smoke", ctx, slots, "decode"), {}),
+        ("rwkv decode", cut(RWKV_ARCH, RWKV_LAYERS),
+         ShapeConfig("smoke", ctx, slots, "decode"), {}),
+        ("encdec decode", whisper,
+         ShapeConfig("smoke", frames, ENCDEC_CLIPS, "decode"), {}),
+    ]
+
+
+def roofline_traces(args) -> list:
+    """Each step of `roofline_steps`, its plan built by `launch.steps` on
+    one rank and traced once on the CPU (fake tensors, the plain path:
+    `LoweredPlan.trace`), as plain numbers: the counted costs, their
+    bounds at the card's rates (`roofline.analysis`: 989 TFLOP/s, 3.35
+    TB/s), the plan's floor bytes (`LoweredPlan.floor_bytes`) and the
+    trace's seconds."""
+    from repro_torch.launch.steps import build_plan
+    from repro_torch.roofline import analysis
+
+    out = []
+    for name, cfg, shape, kw in roofline_steps(args):
+        t0 = time.perf_counter()
+        plan = build_plan(cfg, shape, {"data": 1, "model": 1}, **kw)
+        counter = plan.trace()
+        costs = counter.costs()
+        rl = analysis.analyze(costs, n_chips=1)
+        out.append(dict(
+            name=name, arch=cfg.name, layers=cfg.n_layers,
+            batch=shape.global_batch, seq=shape.seq_len,
+            matmul_flops=int(costs.matmul_flops), flops=int(costs.flops),
+            bytes=int(costs.bytes), compute_s=rl.compute_s,
+            memory_s=rl.memory_s, bottleneck=rl.bottleneck,
+            floor_bytes=plan.floor_bytes(counter),
+            trace_s=time.perf_counter() - t0))
+    return out
+
+
+def _roofline_child(conn, flags) -> None:
+    """`roofline_traces` in a process of its own: ("ok", rows) or
+    ("error", traceback) down `conn`."""
+    try:
+        torch.set_num_threads(1)
+        conn.send(("ok", roofline_traces(types.SimpleNamespace(**flags))))
+    except BaseException:
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def start_roofline(args):
+    """Start the roofline phase's traces in a spawned process (host work
+    alone, no CUDA): started before the build, they run beside it and
+    the card phases.  -> (process, the end of the pipe to read)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_roofline_child, daemon=True, args=(
+        send, {"cpu_rehearsal": args.cpu_rehearsal,
+               "train_batch": args.train_batch,
+               "train_seq": args.train_seq}))
+    proc.start()
+    send.close()
+    atexit.register(lambda: proc.is_alive() and proc.kill())
+    return proc, recv
+
+
+def finish_roofline(child):
+    """The traces of `start_roofline`'s process (None, and a failed
+    check, if it raised or sent nothing in ROOFLINE_WAIT_S); the process
+    is ended either way."""
+    proc, conn = child
+    status, rows = "error", f"no traces in {ROOFLINE_WAIT_S} s"
+    if conn.poll(ROOFLINE_WAIT_S):
+        status, rows = conn.recv()
+    proc.join(timeout=30)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    check(status == "ok", f"roofline traces: {rows}")
+    return rows if status == "ok" else None
+
+
+def run_roofline(args, rows=None) -> list:
+    """The traced steps (`rows`, or `roofline_traces(args)` traced here)
+    against the device ms their phases measured: counted matmul and
+    total FLOPs and bytes; the compute and memory bounds of those counts
+    and `count_ratio`, the larger over the measured ms (the plain path's
+    counts: each kernel's work priced by its plain version's ops, every
+    unfused operand and float32 copy included, so a ratio that can pass
+    1); the step's floor, the larger of its floor bytes (the inputs it
+    reads once, the donated ones written back, no cache or activation)
+    over 3.35 TB/s and, for the train step, its weights' matmuls (6·W a
+    token) over 989 TFLOP/s; and `share`, the floor over the measured
+    ms.  Fails unless the StableLM step's and the Granite decode step's
+    matmul FLOPs equal their closed forms."""
+    from repro_torch.roofline import analysis
+
+    if rows is None:
+        rows = roofline_traces(args)
+    cfgs = {name: cfg for name, cfg, _, _ in roofline_steps(args)}
+    tokens = args.train_batch * args.train_seq
+    for r in rows:
+        name = r["name"]
+        floor_flops = 6 * tokens * matmul_weights(cfgs[name]) \
+            if name == "train step" else 0
+        terms = {"bytes": r["floor_bytes"] / analysis.HBM_BW,
+                 "operations": floor_flops / analysis.PEAK_FLOPS}
+        by = max(terms, key=terms.get)
+        floor_ms = 1e3 * terms[by]
+        bound_ms = 1e3 * max(r["compute_s"], r["memory_s"])
+        ms = STEP_MS.get(name)
+        measured = "not measured" if ms is None else f"{ms:.3f}"
+        share = "not measured" if ms is None else f"{floor_ms / ms:.3f}"
+        ratio = "not measured" if ms is None else f"{bound_ms / ms:.3f}"
+        log(f"roofline {name}: {r['arch']} layers={r['layers']} "
+            f"batch={r['batch']} seq={r['seq']} "
+            f"matmul_flops={r['matmul_flops']} flops={r['flops']} "
+            f"bytes={r['bytes']} compute_ms={1e3 * r['compute_s']:.3f} "
+            f"memory_ms={1e3 * r['memory_s']:.3f} bottleneck="
+            f"{r['bottleneck']} floor_bytes={r['floor_bytes']} "
+            f"floor_flops={floor_flops} floor_ms={floor_ms:.3f} floor_by="
+            f"{by} device_ms={measured} share={share} count_ratio={ratio} "
+            f"trace_s={r['trace_s']:.1f} [{CARD[0]}]")
+    got = {r["name"]: r["matmul_flops"] for r in rows}
+    for name, want in (
+            ("train step", train_matmul_flops(
+                cfgs["train step"], args.train_batch, args.train_seq)),
+            ("lm decode", decode_matmul_flops(
+                cfgs["lm decode"], LM_ENGINE["max_batch"],
+                LM_ENGINE["max_context"]))):
+        log(f"roofline {name}: counted matmul FLOPs {got.get(name)} vs "
+            f"closed form {want}: equal {got.get(name) == want}")
+        check(got.get(name) == want, f"roofline {name}: counted matmul "
+              f"FLOPs {got.get(name)} != closed form {want}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -5473,6 +5717,7 @@ def main(argv=None) -> int:
               "from the root of a checkout", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    roofline_child = start_roofline(args)
 
     # -- device --------------------------------------------------------------
     if dev.type == "cuda":
@@ -5483,6 +5728,8 @@ def main(argv=None) -> int:
         check(smi.returncode == 0, "nvidia-smi failed")
         for line in smi.stdout.strip().splitlines():
             log(line.strip())           # name, power limit
+        CARD[0] = "; ".join(line.strip()
+                            for line in smi.stdout.strip().splitlines())
         build_s = _build.build_all()
         log(f"device torch {torch.__version__} cuda {torch.version.cuda} "
             f"kind={torch.cuda.get_device_name(0)} "
@@ -5584,6 +5831,16 @@ def main(argv=None) -> int:
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+
+    # -- roofline: the timed steps' counted costs against the card's ------
+    # (traced in the process started before the build: the wait is left)
+    t0 = time.perf_counter()
+    rows = finish_roofline(roofline_child)
+    if rows is not None:
+        run_roofline(args, rows)
+    log(f"roofline phase_s={time.perf_counter() - t0:.1f} (the traces "
+        f"took {sum(r['trace_s'] for r in rows or ()):.1f} s beside the "
+        f"build and the card phases)")
 
     # -- main path ------------------------------------------------------------
     n = 1 << args.log2n

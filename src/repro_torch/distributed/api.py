@@ -49,6 +49,15 @@ that require one (training on a mesh is ROADMAP A11, slice 3f).
 `STATS` counts the exchanges' calls and bytes sent, and their host wall
 seconds with the staging copies (a host-staged exchange first waits for
 the card, as its copy to the host would, so that wait is not counted).
+
+`observe_collectives(fn)` has every collective over more than one member
+call `fn(kind, wire_bytes)` with the reference's HLO name and ring-
+algorithm wire bytes (`repro.roofline.hlo_costs`): psum and pmax an
+"all-reduce" of 2x the operand's bytes, all_gather (and the assembly
+of a shard_map output) an "all-gather" of the result's, psum_scatter a
+"reduce-scatter" and all_to_all an "all-to-all" of the operand's,
+ppermute a "collective-permute" of the result's.  The roofline's cost
+counter (`roofline.op_costs`) listens so.
 """
 from __future__ import annotations
 
@@ -84,6 +93,30 @@ def mesh_dict(mesh) -> Dict[str, int]:
     if isinstance(mesh, dict):
         return dict(mesh)
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def observe_collectives(fn: Callable[[str, int], None]):
+    """A context in which every collective calls fn(kind, wire_bytes)
+    (see the module docstring)."""
+    @contextlib.contextmanager
+    def scope():
+        prev = getattr(_state, "observers", ())
+        _state.observers = prev + (fn,)
+        try:
+            yield fn
+        finally:
+            _state.observers = prev
+    return scope()
+
+
+def _observe(kind: str, wire_bytes: int, members: int) -> None:
+    if members > 1:
+        for fn in getattr(_state, "observers", ()):
+            fn(kind, wire_bytes)
+
+
+def _bytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def current_mesh():
@@ -133,6 +166,7 @@ def _assemble(y: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     for dim, entry in enumerate(spec):
         for name in reversed(spec_axes(entry)):   # the last axis is minor
             y = torch.cat(_gather_blocks(y, mesh, name), dim=dim)
+            _observe("all-gather", _bytes(y), mesh_dict(mesh)[name])
     return y
 
 
@@ -262,6 +296,7 @@ def axis_size(axis_name: str) -> int:
 
 def psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     blocks = _gather_blocks(x, _bound(axis_name), axis_name)
+    _observe("all-reduce", 2 * _bytes(x), len(blocks))
     return functools.reduce(torch.add, blocks)
 
 
@@ -271,12 +306,14 @@ def pmean(x: torch.Tensor, axis_name: str) -> torch.Tensor:
 
 def pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     blocks = _gather_blocks(x, _bound(axis_name), axis_name)
+    _observe("all-reduce", 2 * _bytes(x), len(blocks))
     return functools.reduce(torch.maximum, blocks)
 
 
 def all_gather(x: torch.Tensor, axis_name: str, axis: int = 0,
                tiled: bool = False) -> torch.Tensor:
     blocks = _gather_blocks(x, _bound(axis_name), axis_name)
+    _observe("all-gather", len(blocks) * _bytes(x), len(blocks))
     return torch.cat(blocks, axis) if tiled else torch.stack(blocks, axis)
 
 
@@ -292,6 +329,7 @@ def all_to_all(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     if n == 1:
         return x
     row = x[0].numel()
+    _observe("all-to-all", _bytes(x), n)
     return _exchange(x, mesh, axis_name, [row] * n, [row] * n, x.shape)
 
 
@@ -310,6 +348,7 @@ def ppermute(x: torch.Tensor, axis_name: str, perm) -> torch.Tensor:
             recv[src] = x.numel()
     if n == 1:
         return x if recv[0] else torch.zeros_like(x)
+    _observe("collective-permute", _bytes(x), n)
     out = _exchange(x, mesh, axis_name, send, recv,
                     x.shape if any(recv) else (0,))
     return out if any(recv) else torch.zeros_like(x)
@@ -322,6 +361,7 @@ def psum_scatter(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     n = mesh_dict(mesh)[axis_name]
     if n == 1:
         return x
+    _observe("reduce-scatter", _bytes(x), n)
     chunk = x.numel() // n
     recv = _exchange(x, mesh, axis_name, [chunk] * n, [chunk] * n,
                      (n, x.shape[0] // n) + tuple(x.shape[1:]))

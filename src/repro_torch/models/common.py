@@ -275,9 +275,14 @@ class CacheIndex:
 
 
 def cache_index(cache_pos: torch.Tensor, s_max: int, s: int,
-                use_kernels: bool) -> CacheIndex:
+                use_kernels: bool, start: Optional[int] = None
+                ) -> CacheIndex:
+    """`start`: the write offset of a multi-token call when the caller
+    knows it (a prefill writes from position 0), so that the positions
+    are not read on the host; otherwise a multi-token call reads
+    `cache_pos` there."""
     if s > 1:
-        offsets = cache_pos.tolist()
+        offsets = [start] if start is not None else cache_pos.tolist()
         if use_kernels and any(offsets):
             raise ValueError(
                 f"a {s}-token call at cache offsets {offsets}: the flash "

@@ -25,6 +25,15 @@ the port runs as the lists `enc_layers` / `dec_layers`.
   opt_state_from_reference  the reference's AdamWState / AdafactorState ->
                          the port's, leaves as tensors on a device, the
                          step an int32 host tensor
+  cache_to_reference     a decoder's cache {'layers', 'pos'} -> the
+                         reference's {'prefix', 'stacks', 'pos'} (layers
+                         stacked); an encoder-decoder's is the same in both
+  cache_from_reference   the other way, stacked leaves as `unbind` views:
+                         a forward writing a layer's K/V in place writes
+                         the stacked tensor
+  cache_into_reference   after such a forward, the new recurrent states
+                         copied into the stacked tensors, in place (a
+                         donated buffer's update)
 
 The trainer (`train.loop`) holds its parameters and optimizer state in
 the reference's layout: the reference's optimizers decide weight decay
@@ -43,7 +52,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.optim import AdafactorState, AdamWState
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 from .transformer import split_layout
 
 
@@ -122,3 +131,41 @@ def opt_state_from_reference(ref_state: Any, device=None):
     step = torch.tensor(int(ref_state.step), dtype=torch.int32)
     return cls(step, *(tree_map(lambda a: to_tensor(a, dev), t)
                        for t in ref_state[1:]))
+
+
+def cache_to_reference(cache: dict, cfg: ModelConfig) -> dict:
+    if cfg.is_encdec:
+        return cache
+    prefix_len, period, n_super = split_layout(cfg)
+    layers = cache["layers"]
+    return {"prefix": [layers[i] for i in range(prefix_len)],
+            "pos": cache["pos"],
+            "stacks": [_stack([layers[prefix_len + u * period + pos]
+                               for u in range(n_super)]) if n_super else None
+                       for pos in range(period)]}
+
+
+def cache_from_reference(ref: dict, cfg: ModelConfig) -> dict:
+    if cfg.is_encdec:
+        return ref
+    prefix_len, period, n_super = split_layout(cfg)
+    stacks = [_unstack(ref["stacks"][pos], n_super, lambda t: t)
+              for pos in range(period)] if n_super else []
+    return {"layers": list(ref["prefix"][:prefix_len])
+            + [stacks[pos][u] for u in range(n_super)
+               for pos in range(period)],
+            "pos": ref["pos"]}
+
+
+def cache_into_reference(ref: dict, views: dict, new: dict,
+                         cfg: ModelConfig) -> dict:
+    """`ref` after a forward that ran on `views` (its
+    `cache_from_reference`) and returned `new`: every leaf of `new` that
+    is not the view it replaces is copied into it, in place; the
+    positions are `new`'s."""
+    if cfg.is_encdec:
+        return new
+    for old, cur in zip(leaves(views["layers"]), leaves(new["layers"])):
+        if cur is not old:
+            old.copy_(cur)
+    return dict(ref, pos=new["pos"])

@@ -139,8 +139,10 @@ def router_stats(cfg: ModelConfig, logits: torch.Tensor,
     mean squared logsumexp: what the aux losses are made of."""
     t, e = probs.shape
     me = probs.mean(dim=0)
-    ce = torch.bincount(top_e.reshape(-1), minlength=e).float() \
-        * (1.0 / (t * cfg.moe.top_k))
+    # each expert's routed slots, counted shape-statically (a one-hot
+    # sum of integers: exact, and traceable without the data)
+    hits = top_e.reshape(-1, 1) == torch.arange(e, device=top_e.device)
+    ce = hits.sum(dim=0).float() * (1.0 / (t * cfg.moe.top_k))
     return me, ce, (torch.logsumexp(logits, dim=-1) ** 2).mean()
 
 
@@ -185,10 +187,11 @@ def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor,
     aux = aux_losses(cfg, logits, probs, r.top_e)
     cap = r.cap
 
-    # dispatch: the kept slots' tokens into an (E·cap, d) buffer
-    kept = r.slot[r.keep]
-    buf = xt.new_zeros((e * cap, d)).index_put((kept,), xt[r.st[r.keep]])
-    buf = constrain(buf.view(e, cap, d), "model", "dp", None)
+    # dispatch: the kept slots' tokens into an (E·cap, d) buffer; a
+    # dropped slot writes the spare row E·cap, which is cut off (shapes
+    # that do not depend on the routing)
+    buf = xt.new_zeros((e * cap + 1, d)).index_put((r.slot,), xt[r.st])
+    buf = constrain(buf[:e * cap].view(e, cap, d), "model", "dp", None)
 
     # expert FFNs: dense per-expert GEMMs (the block-diagonal multiply)
     h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])

@@ -11,9 +11,13 @@ functions, every other config `models.transformer`'s.  Each function
 takes `use_kernels=` (default True: flash attention for prompts, paged
 attention for decode steps).  The kernels have no
 backward, so training differentiates `loss_fn` with `use_kernels=False`
-(`train.loop` does).  The reference's
-`input_specs` family serves its multi-pod dry-run and waits for the
-port's `launch/dryrun` (ROADMAP A11, slice 3d).
+(`train.loop` does).
+
+`input_specs(cfg, shape)` returns stand-ins for every input of the step
+that the dry-run traces: fake tensors (`fake_mode()`, shapes and dtypes
+on the CPU, no storage), the counterpart of the reference's
+`ShapeDtypeStruct`s, in the reference's layouts (a decoder's cache
+stacked as `convert.cache_to_reference` stacks it).
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from . import transformer, whisper
 from .common import dtype_of
@@ -66,6 +70,83 @@ def _flip(fn):
     def wrapped(cfg, params, *a, **k):
         return fn(params, cfg, *a, **k)
     return wrapped
+
+
+# ---------------------------------------------------------------------------
+# Input specs for the dry-run (fake tensors, no allocation)
+# ---------------------------------------------------------------------------
+
+_FAKE = []
+
+
+def fake_mode():
+    """The process's one `FakeTensorMode`: tensors made under it have
+    shapes, dtypes and a CPU device and no storage.  Every stand-in of a
+    step -- parameters, optimizer state, inputs -- is made under this one
+    mode, since fake tensors of two modes do not mix."""
+    if not _FAKE:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        _FAKE.append(FakeTensorMode(allow_non_fake_inputs=True))
+    return _FAKE[0]
+
+
+def _tok(shape):
+    return torch.empty(shape, dtype=torch.int32)
+
+
+def _embeds(cfg: ModelConfig, b: int, s: int):
+    return torch.empty((b, s, cfg.d_model), dtype=dtype_of(cfg))
+
+
+def train_input_specs(cfg: ModelConfig, shape: ShapeConfig
+                      ) -> Dict[str, Any]:
+    b, s = shape.global_batch, shape.seq_len
+    with fake_mode():
+        if cfg.is_encdec:
+            return {"frames": _embeds(cfg, b, s),
+                    "tokens": _tok((b, cfg.decoder_len)),
+                    "labels": _tok((b, cfg.decoder_len))}
+        if cfg.family == "vlm":
+            # early-fusion VLM: the VQ tokenizer frontend is a stub; the
+            # inputs are precomputed patch-token embeddings
+            return {"embeds": _embeds(cfg, b, s), "labels": _tok((b, s))}
+        return {"tokens": _tok((b, s)), "labels": _tok((b, s))}
+
+
+def prefill_input_specs(cfg: ModelConfig, shape: ShapeConfig
+                        ) -> Dict[str, Any]:
+    b, s = shape.global_batch, shape.seq_len
+    with fake_mode():
+        if cfg.is_encdec:
+            return {"frames": _embeds(cfg, b, s),
+                    "tokens": _tok((b, cfg.decoder_len))}
+        if cfg.family == "vlm":
+            return {"embeds": _embeds(cfg, b, s)}
+        return {"tokens": _tok((b, s))}
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig
+                       ) -> Dict[str, Any]:
+    """Specs for (cache, tokens) of one serve_step with a seq_len-long
+    context already in the cache."""
+    from .convert import cache_to_reference
+    b, s = shape.global_batch, shape.seq_len
+    with fake_mode():
+        if cfg.is_encdec:
+            cache = whisper.init_cache(cfg, b, cfg.decoder_len,
+                                       _embeds(cfg, b, s))
+        else:
+            cache = cache_to_reference(
+                transformer.init_cache(cfg, b, s, "cpu"), cfg)
+        return {"cache": cache, "tokens": _tok((b, 1))}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    if shape.kind == "train":
+        return train_input_specs(cfg, shape)
+    if shape.kind == "prefill":
+        return prefill_input_specs(cfg, shape)
+    return decode_input_specs(cfg, shape)
 
 
 # ---------------------------------------------------------------------------

@@ -268,14 +268,15 @@ def _first_kv(cache: Params) -> Optional[torch.Tensor]:
 
 def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
             cache: Optional[Params] = None, remat: str = "full",
-            use_kernels: bool = True
+            use_kernels: bool = True, cache_start: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """-> (hidden (B,S,d), new_cache, aux_loss).
 
     Training: cache None.  Prefill: a zero-pos cache.  Decode: S == 1.
     aux_loss sums the MoE layers' balance and z-losses (0 without MoE).
     `remat` ("none", "dots", "full") applies to a forward without a
-    cache that autograd records."""
+    cache that autograd records.  `cache_start`: where a multi-token
+    call writes the cache, when the caller knows it (`cache_index`)."""
     require_supported(cfg)
     if embeds is None:
         embeds = params["embed"][tokens.long()]
@@ -293,7 +294,8 @@ def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
     if cache is not None:
         k0 = _first_kv(cache)
         if k0 is not None:
-            index = cache_index(cache_pos, k0.shape[1], s, use_kernels)
+            index = cache_index(cache_pos, k0.shape[1], s, use_kernels,
+                                cache_start)
 
     remat_kw = _remat_kwargs(remat)
     if cache is not None or not torch.is_grad_enabled():
@@ -345,16 +347,19 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
-            max_len: int, use_kernels: bool = True
-            ) -> Tuple[torch.Tensor, Params]:
-    """Run the prompt, build the cache, return last-position logits."""
+            max_len: int, use_kernels: bool = True,
+            cache: Optional[Params] = None) -> Tuple[torch.Tensor, Params]:
+    """Run the prompt, build the cache, return last-position logits.
+    `cache`: a zero cache of max_len positions to fill (default: a fresh
+    `init_cache`)."""
     tokens = batch.get("tokens")
     embeds = batch.get("embeds")
     src = tokens if tokens is not None else embeds
-    cache = init_cache(cfg, src.shape[0], max_len, device=src.device)
+    if cache is None:
+        cache = init_cache(cfg, src.shape[0], max_len, device=src.device)
     x, new_cache, _ = forward(params, cfg, tokens=tokens, embeds=embeds,
                               cache=cache, remat="none",
-                              use_kernels=use_kernels)
+                              use_kernels=use_kernels, cache_start=0)
     logits = x[:, -1:, :] @ head_matrix(params, cfg)
     return logits, new_cache
 

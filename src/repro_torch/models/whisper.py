@@ -126,10 +126,13 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
 
 def decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
            enc_out: torch.Tensor, cache: Optional[Params] = None,
-           remat: str = "full", use_kernels: bool = True
+           remat: str = "full", use_kernels: bool = True,
+           cache_start: Optional[int] = None
            ) -> Tuple[torch.Tensor, Optional[Params]]:
     """tokens: (B, T) -> (hidden (B, T, d), new_cache).  cache: the
-    per-layer stacked self K/V (`init_cache`), written in place."""
+    per-layer stacked self K/V (`init_cache`), written in place;
+    `cache_start`: where a multi-token call writes it, when the caller
+    knows it (`cache_index`)."""
     b, t = tokens.shape
     dev = tokens.device
     cache_pos = cache["pos"] if cache is not None else None
@@ -142,7 +145,8 @@ def decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     index = cross = None
     if cache is not None:
         ks, vs = cache["kv_stack"]["kv"]["k"], cache["kv_stack"]["kv"]["v"]
-        index = cache_index(cache_pos, ks.shape[2], t, use_kernels)
+        index = cache_index(cache_pos, ks.shape[2], t, use_kernels,
+                            cache_start)
     if use_kernels and t == 1:
         cross = kv_index(b, enc_out.shape[1], dev)
 
@@ -207,7 +211,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                      use_kernels=use_kernels)
     cache = init_cache(cfg, batch["tokens"].shape[0], max_len, enc_out)
     x, new_cache = decode(params, cfg, batch["tokens"], enc_out, cache=cache,
-                          remat="none", use_kernels=use_kernels)
+                          remat="none", use_kernels=use_kernels,
+                          cache_start=0)
     return x[:, -1:, :] @ params["tok_embed"].T, new_cache
 
 

@@ -17,7 +17,11 @@ time: the next level is the frontier's neighbour lists concatenated in
 frontier order, minus what was visited before the level, each node kept
 at its first occurrence.  That is exactly the order the reference's
 node-at-a-time queue appends, with one numpy pass per level instead of
-one Python step per node.  The large sorts run on the matrix's device
+one Python step per node.  A component of `BFS_MIN_NODES` nodes or more
+(a long band has hundreds of thousands of levels) is searched instead by
+scipy's compiled breadth-first search, which appends in that same queue
+order over the sorted adjacency; its levels are read off the
+predecessors.  The large sorts run on the matrix's device
 (`device.stable_argsort`): a stable sort's result is unique, so it is
 the same wherever it runs.
 """
@@ -123,6 +127,59 @@ def _pseudo_peripheral(start: int, adj_ptr, adj, deg, seen, mark) -> int:
     return node
 
 
+#: components this large are searched by scipy's breadth-first search (a
+#: call costs O(nodes of the matrix)); smaller ones a level at a time
+BFS_MIN_NODES = 1024
+
+
+def _graph(adj_ptr, adj, n: int):
+    """The adjacency as scipy's csgraph input, neighbours in their
+    sorted order (float64 weights and int32 indices: no conversion per
+    search)."""
+    from scipy.sparse import csr_matrix
+    return csr_matrix((np.ones(adj.size), adj.astype(np.int32),
+                       adj_ptr.astype(np.int32)), shape=(n, n))
+
+
+def _bfs(graph, start: int, levels: bool = False):
+    """scipy's breadth-first order from `start`: the queue order over
+    each node's sorted neighbours.  With `levels`: (order, depth of each
+    node of the order), depths by pointer jumping on the parents'
+    positions in the order."""
+    from scipy.sparse.csgraph import breadth_first_order
+    if not levels:
+        return breadth_first_order(graph, start, directed=True,
+                                   return_predecessors=False)
+    order, pred = breadth_first_order(graph, start, directed=True,
+                                      return_predecessors=True)
+    where = np.empty(graph.shape[0], dtype=np.int64)
+    where[order] = np.arange(order.size)
+    up = np.zeros(order.size, dtype=np.int64)
+    up[1:] = where[pred[order[1:]]]
+    depth = np.ones(order.size, dtype=np.int64)
+    depth[0] = 0
+    while up.any():
+        depth += depth[up]
+        up = up[up]
+    return order, depth
+
+
+def _pseudo_peripheral_bfs(start: int, graph, deg) -> int:
+    """`_pseudo_peripheral` through `_bfs`."""
+    node = start
+    last_ecc = -1
+    for _ in range(8):
+        order, depth = _bfs(graph, node, levels=True)
+        ecc = int(depth[-1])            # the order runs level by level
+        if ecc <= last_ecc:
+            break
+        last_ecc = ecc
+        frontier = order[depth == ecc]
+        d = deg[frontier]
+        node = int(frontier[d == d.min()].min())
+    return node
+
+
 def _first_unvisited(seeds: np.ndarray, visited: np.ndarray, i: int,
                      chunk: int = 4096) -> int:
     """Index of the first seed at or after `i` not yet visited
@@ -151,10 +208,23 @@ def rcm(csr: CSR) -> Reordering:
     order[:pos] = seeds[:pos]
     visited[seeds[:pos]] = True
     i = pos
+    graph = sizes = label = None
+    if n - pos >= BFS_MIN_NODES:
+        from scipy.sparse.csgraph import connected_components
+        graph = _graph(adj_ptr, adj, n)
+        label = connected_components(graph, directed=False)[1]
+        sizes = np.bincount(label)
     while True:
         i = _first_unvisited(seeds, visited, i)
         if i == seeds.size:
             break
+        if graph is not None and sizes[label[seeds[i]]] >= BFS_MIN_NODES:
+            seed = _pseudo_peripheral_bfs(int(seeds[i]), graph, deg)
+            comp = _bfs(graph, seed)    # the whole component, unvisited
+            visited[comp] = True
+            order[pos:pos + comp.size] = comp
+            pos += comp.size
+            continue
         seed = _pseudo_peripheral(int(seeds[i]), adj_ptr, adj, deg, seen,
                                   mark)
         if visited[seed]:

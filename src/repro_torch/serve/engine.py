@@ -103,7 +103,7 @@ class Engine:
                                      self.device)
         x, new_sub, _ = transformer.forward(
             self.params, self.cfg, tokens=toks.to(self.device), cache=sub,
-            use_kernels=self.use_kernels)
+            use_kernels=self.use_kernels, cache_start=0)
         new_sub = _restamp_pos(new_sub, torch.tensor(
             [plen], dtype=torch.int32, device=self.device))
         self.cache = transformer.merge_cache(self.cache, new_sub, slot_id)

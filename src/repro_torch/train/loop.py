@@ -55,7 +55,11 @@ def loss_and_grads(api: ModelAPI, remat: str = "full"
             dev = leaves(params)[0].device
             loss = api.loss_fn(params_from_reference(live, api.cfg, dev),
                                batch, remat=remat, use_kernels=False)
-            grads = torch.autograd.grad(loss, leaves(live))
+            # a parameter the loss does not use (a VLM's token embedding,
+            # fed embeddings) gets a zero gradient, as under jax.grad
+            grads = torch.autograd.grad(loss, leaves(live),
+                                        allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), unflatten(params, grads)
     return value_and_grad
 

@@ -118,7 +118,8 @@ SLICE_MODULES = {
                                     "shard_map", "P", "mesh_dict", "psum",
                                     "pmean", "pmax", "all_gather",
                                     "all_to_all", "ppermute", "psum_scatter",
-                                    "axis_index", "axis_size", "transport"),
+                                    "axis_index", "axis_size", "transport",
+                                    "observe_collectives"),
     # the mesh slice: meshes, shard_map, sharding rules, collectives,
     # the pipeline schedule and the MoE mesh paths
     "repro_torch.launch.mesh": ("make_mesh", "make_production_mesh",
@@ -144,7 +145,10 @@ SLICE_MODULES = {
         "merge_cache", "forward", "head_matrix", "loss_fn", "prefill",
         "decode_step"),
     "repro_torch.models.registry": ("ModelAPI", "get_model",
-                                    "random_train_batch"),
+                                    "random_train_batch", "fake_mode",
+                                    "train_input_specs",
+                                    "prefill_input_specs",
+                                    "decode_input_specs", "input_specs"),
     # the MoE, Mamba and RWKV blocks and the knobs
     "repro_torch.models.tuning": ("set_profile", "set_knob", "snapshot",
                                   "_PROFILES", "rwkv_chunked_scan",
@@ -163,7 +167,10 @@ SLICE_MODULES = {
                                  "init_rwkv_state", "_LW_CLIP"),
     "repro_torch.models.convert": ("params_from_reference",
                                    "params_to_reference",
-                                   "opt_state_from_reference"),
+                                   "opt_state_from_reference",
+                                   "cache_to_reference",
+                                   "cache_from_reference",
+                                   "cache_into_reference"),
     # the encoder-decoder
     "repro_torch.models.whisper": ("sinusoids", "init_enc_block",
                                    "init_dec_block", "init_params",
@@ -193,8 +200,23 @@ SLICE_MODULES = {
                                       "plan_elastic_rescale", "Supervisor"),
     "repro_torch.train.loop": ("TrainConfig", "make_train_step",
                                "init_train_state", "loss_and_grads"),
-    "repro_torch.launch.steps": ("ADAFACTOR_THRESHOLD", "optimizer_for"),
+    "repro_torch.launch.steps": ("ADAFACTOR_THRESHOLD", "optimizer_for",
+                                 "LoweredPlan", "params_and_shardings",
+                                 "build_train_plan", "build_prefill_plan",
+                                 "build_decode_plan", "build_plan"),
     "repro_torch.launch.train": ("build", "main"),
+    # the dry-run and the roofline
+    "repro_torch.launch.dryrun": ("tokens_per_step", "model_flops",
+                                  "run_cell", "main"),
+    "repro_torch.roofline.op_costs": ("Costs", "CostCounter", "op_cost",
+                                      "costs_of_rows", "top_ops"),
+    "repro_torch.roofline.analysis": ("PEAK_FLOPS", "HBM_BW", "LINK_BW",
+                                      "Roofline", "analyze",
+                                      "model_flops_train",
+                                      "model_flops_decode"),
+    "repro_torch.roofline.reanalyze": ("reanalyze_record", "main"),
+    "repro_torch.roofline.report": ("MOVE_HINTS", "fmt_bytes", "load",
+                                    "table", "diagnosis", "main"),
 }
 
 #: names each package exports, as the reference's `__init__` does

@@ -112,6 +112,24 @@ def test_rcm_on_a_rectangular_and_a_disconnected_matrix():
         assert _same_reordering(R.rcm(ref), T.rcm(port_csr(ref)))
 
 
+@pytest.mark.parametrize("min_nodes", [1, 1 << 30])
+@pytest.mark.parametrize("matrix", list(MATRICES) + ["islands"])
+def test_rcm_both_searches_byte_identical(matrix, min_nodes, monkeypatch):
+    """RCM's two breadth-first searches -- scipy's for every component
+    (min_nodes 1), a level at a time for every one (2^30) -- each give
+    the reference's permutation."""
+    from repro_torch.reorder import strategies
+    if matrix == "islands":
+        rng = np.random.default_rng(5)
+        rows = rng.integers(0, 2048, 1500)
+        ref = rf.CSR.from_coo(rows, (rows + rng.integers(1, 4, 1500)) % 2048,
+                              np.ones(1500, np.float32), 2048, 2048)
+    else:
+        ref = MATRICES[matrix]()
+    monkeypatch.setattr(strategies, "BFS_MIN_NODES", min_nodes)
+    assert _same_reordering(R.rcm(ref), T.rcm(port_csr(ref)))
+
+
 def test_permute_byte_identical_with_duplicates_and_refusals():
     """FD at n = 22 keeps its duplicate coordinates (ROADMAP C1) through
     `permute`; a non-permutation is refused as in the reference."""
