@@ -194,7 +194,26 @@ kernels/csrc/` and then runs these phases, one output line per step:
            `crosspod_allreduce_compressed` over StableLM-1.6B's
            embedding and layer 0 on (pod 2, data 2), bit for bit the
            formula on one rank; `pipeline_apply` on 4 stages at the
-           reference's toy widths within 1e-4.  Each call's ms (CUDA
+           reference's toy widths within 1e-4; (D) once the MoE parts'
+           memory is freed, the partitioned train step
+           (`distributed.partition`): StableLM-1.6B at its published
+           widths (d 2048, 32 heads of 64, d_ff 5632, vocab 100,352),
+           depth cut 24 -> 2, float32, AdamW as the train phase's, 8 x
+           512 tokens on (data 2, model 2), each rank on its blocks of
+           the state (FSDP on data, Megatron on model) and its rows of
+           each batch: 3 steps, step 0 replayed from a copy of its
+           state, then one step on (data 1, model 4); between the
+           ranks' MoE parts and this part, once the ranks have given
+           their memory back, this process runs the same steps on one
+           rank, from the same seeded parameters and batches, as the
+           gate: loss and grad_norm
+           within rel 1e-5 at every step, step 0's gradients (AdamW's
+           mu / (1 - b1)) within 1e-4 of each leaf's max on every rank,
+           loss and grad_norm the same bits on the four ranks, the
+           replay within rel 1e-6; rank 0's step ms (events and host
+           clock after a sync), the collectives' host ms and MiB sent,
+           each rank's peak GiB, beside the card's name and power
+           limit.  Each call's ms (CUDA
            events on rank 0 between barriers) beside its host ms and the
            collectives' share (gloo through the host, not an
            interconnect), the global one-rank layer's ms beside; every
@@ -2572,6 +2591,7 @@ ENCDEC_F32_LAYERS = 4               # encoder and decoder layers, float32
 ENCDEC_FORCED = 16                  # teacher-forced decode steps
 ENCDEC_REPLAY = 3                   # steps of the bit-identical replay
 ENCDEC_WINDOW = 5                   # decode steps in the profiler window
+ENCDEC_TRACE_PAD_S = 0.02           # idle host time at the window's edges
 #: openai/whisper's multilingual tokenizer as large-v3 numbers it (100
 #: languages): <|startoftranscript|> <|en|> <|transcribe|>
 #: <|notimestamps|> is decoding.py's start sequence without timestamps,
@@ -2940,18 +2960,24 @@ def encdec_window(cfg, api, params, cache, tok, dev, kv_rows) -> None:
     sync(dev)
     # a warm-up step under the tracer, its records dropped (`schedule`),
     # so that the window starts with the tracer running: a window
-    # without it once kept 2,038 of a step's 2,048 kernels
+    # without it once kept 2,038 of a step's 2,048 kernels.  The window
+    # opens a little after `prof.step()` returns, and the records of the
+    # kernels launched before it opens are dropped: without the idle
+    # ENCDEC_TRACE_PAD_S at its edges 8 of 25 windows lost 1-204 of their
+    # first kernels on an H100, with it none of 25
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True, schedule=schedule(
                      wait=0, warmup=1, active=1, repeat=1)) as prof:
         logits, c = api.decode_step(params, c, tok)
         sync(dev)
         prof.step()
+        time.sleep(ENCDEC_TRACE_PAD_S)
         t0 = time.perf_counter()
         for _ in range(n):
             logits, c = api.decode_step(params, c, tok)
         sync(dev)
         wall_ms = 1e3 * (time.perf_counter() - t0)
+        time.sleep(ENCDEC_TRACE_PAD_S)
         prof.step()
     # one pass over the trace: kernels carry no shapes, so grouping by
     # shape keeps one entry each, and splits the CPU ops by theirs
@@ -3505,6 +3531,14 @@ MESH_DECODE_RTOL = 2.0 ** -7        # its combine is a bfloat16 psum
 MESH_GATE = 1.1                     # x the one-rank bfloat16 error
 MESH_TOL = 1e-4                     # ring, LSE merge, pipeline (the
 #                                     reference's test_multidevice bound)
+MESH_TRAIN_ARCH = "stablelm-1.6b"   # the partitioned train step's model
+MESH_TRAIN_LAYERS = 2               # of its 24, at its published widths
+MESH_TRAIN_SEED = 29                # weights (the batches: seed 0)
+MESH_TRAIN_STEPS = 3                # on (data 2, model 2); then step 0
+#                                     replayed, and one step on (1, 4)
+MESH_TRAIN_RTOL = 1e-5              # loss and grad_norm vs one rank
+MESH_TRAIN_GRAD_TOL = 1e-4          # step 0's gradients, of a leaf's max
+MESH_TRAIN_REPLAY_RTOL = 1e-6       # the replayed step's loss
 
 
 def mesh_sizes(small: bool) -> dict:
@@ -3592,10 +3626,82 @@ def forced_logits(api, params, prompts, steps, dev):
     return torch.stack(rows)
 
 
+def mesh_train_setup(small: bool, dev):
+    """StableLM-1.6B at its published widths cut to MESH_TRAIN_LAYERS
+    layers, float32 (the reduced config for the rehearsal), the train
+    phase's TrainConfig, and its batches (8 x 512 tokens; rehearsal
+    4 x 32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import registry
+
+    cfg = get_config(MESH_TRAIN_ARCH)
+    cfg = dataclasses.replace(cfg.reduced() if small else cfg,
+                              n_layers=MESH_TRAIN_LAYERS, dtype="float32")
+    batch, seq = (4, 32) if small else (8, 512)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=0), device=dev)
+    return cfg, registry.get_model(cfg), train_config(cfg), data
+
+
+def mesh_train_params(api, dev):
+    """The seeded global parameters in the trainer's layout: the same
+    bits on every rank and in the parent."""
+    from repro_torch.models.convert import params_to_reference
+    gen = torch.Generator(device=dev).manual_seed(MESH_TRAIN_SEED)
+    return params_to_reference(api.init(gen, dev), api.cfg)
+
+
+def mesh_train_reference(small, dev, d) -> dict:
+    """The partitioned step's gate: MESH_TRAIN_STEPS one-rank steps on
+    this process from the same parameters and batches; step 0's
+    gradients (AdamW's mu / (1 - b1)) and each leaf's max |g| saved in
+    `d` for the ranks."""
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import leaves
+
+    cfg, api, tc, data = mesh_train_setup(small, dev)
+    params = mesh_train_params(api, dev)
+    opt = make_optimizer(tc.optimizer)[0](params)
+    out = {"inputs": [bits_digest(t) for t in leaves(params)[:4]],
+           "rows": [], "n_params": sum(t.numel() for t in leaves(params))}
+    step = make_train_step(api, tc)
+    b1 = OptimizerConfig().b1
+    for i in range(MESH_TRAIN_STEPS):
+        b = data.batch_at(i)
+        sync(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        sync(dev)
+        out["rows"].append((float(m["loss"]), float(m["grad_norm"]),
+                            1e3 * (time.perf_counter() - t0)))
+        if i == 0:
+            grads = [(mu / (1 - b1)).cpu() for mu in leaves(opt.mu)]
+            torch.save({"grads": grads,
+                        "max": [float(g.abs().max()) for g in grads]},
+                       os.path.join(d, "train_grads.pt"))
+            del grads
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                       if dev.type == "cuda" else float("nan"))
+    return out
+
+
+def card_memory(dev) -> str:
+    """The card's free memory and this process's share of it."""
+    if dev.type != "cuda":
+        return "not measured (no card)"
+    free, total = torch.cuda.mem_get_info()
+    return (f"free {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB, this "
+            f"process reserves {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
+            f"(allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f})")
+
+
 def run_mesh(args, dev, world) -> dict:
     """The mesh phase: the one-rank references on this process, then the
     four ranks of `world` (`launch.mesh.World`, started in the train phase:
-    one card, gloo).  Returns the phase's kernel launch counts (none: its
+    one card, gloo); then the one-rank train step on this process and the
+    partitioned one on the ranks.  Returns the phase's kernel launch counts (none: its
     paths run torch ops and collectives)."""
     from repro_torch.models import moe, registry, transformer
     from repro_torch.tree import leaves, tree_map
@@ -3662,17 +3768,49 @@ def run_mesh(args, dev, world) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # -- the ranks ----------------------------------------------------------
+    # -- the ranks: the MoE paths, the model run, the collectives ----------
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "refs.pt")
         torch.save(refs, path)
+        log(f"mesh card memory before the ranks' parts: {card_memory(dev)}")
         t0, wall0 = time.perf_counter(), time.time()
         ranks = world.run(mesh_rank, args=(path, small, global_ms))
         launch_s = time.perf_counter() - t0
+
+        # -- C: StableLM's train step on one rank (the partitioned step's
+        # gate), once the ranks have given their parts' memory back ------
+        log(f"mesh card memory before the one-rank train step: "
+            f"{card_memory(dev)}")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        refs = {"train": mesh_train_reference(small, dev, d), "card": CARD[0]}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rows = refs["train"]["rows"]
+        log(f"mesh train reference (one rank, this process): "
+            f"{MESH_TRAIN_ARCH} {MESH_TRAIN_LAYERS} layers float32, "
+            f"params={refs['train']['n_params']}: " + "; ".join(
+                f"step {i} loss={lo:.6f} grad_norm={gn:.6f} ms={ms:.1f}"
+                for i, (lo, gn, ms) in enumerate(rows))
+            + f" (host clock after a sync); peak "
+            f"{refs['train']['peak_gib']:.2f} GiB; then "
+            f"{card_memory(dev)} [{lap():.1f} s] [{CARD[0]}]")
+
+        # -- D: the partitioned train step on the ranks --------------------
+        torch.save(refs, path)
+        t0 = time.perf_counter()
+        trained = world.run(mesh_train_rank, args=(path,))
+        launch_s += time.perf_counter() - t0
+    for q, t in zip(ranks, trained):
+        for key in ("lines", "checks"):
+            q[key] += t[key]
+        for key in ("digests", "parts", "peaks", "free"):
+            q[key].update(t[key])
     for line in ranks[0]["lines"]:
         log(line)
     for ok, what in ranks[0]["checks"]:
         check(ok, what)
+    mesh_train_summary(trained)
     differ = sorted({k for r in ranks for k in r["digests"]
                      if r["digests"][k] != ranks[0]["digests"].get(k)})
     same = not differ
@@ -3692,8 +3830,13 @@ def run_mesh(args, dev, world) -> dict:
                                          for k, v in q["peaks"].items())
                 for i, q in enumerate(ranks))
             + f"; the four ranks' largest sum "
-            f"{sum(max(q['peaks'].values()) for q in ranks):.2f}")
+            f"{sum(max(q['peaks'].values()) for q in ranks):.2f}; the "
+            f"card's free GiB as each part began (rank 0): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in ranks[0]["free"].items()))
     return {}
+
+
+_MESH_RANK: list = []          # this rank process's MeshRank, across runs
 
 
 class MeshRank:
@@ -3715,7 +3858,27 @@ class MeshRank:
         self.meshes["stage"] = make_mesh((MESH_RANKS,), ("stage",))
         self.startup_s = time.perf_counter() - t0
         self.refs = torch.load(refs_path) if rank == 0 else None
+        self.grads_path = os.path.join(os.path.dirname(refs_path),
+                                       "train_grads.pt")
         self.lines, self.checks, self.digests = [], [], {}
+        self.parts, self.peaks, self.free = {}, {}, {}
+        self.train: dict = {}
+
+    def part(self, name, fn) -> list:
+        """Run one part; its seconds, peak memory and the card's free
+        memory as it began; its memory given back to the card after."""
+        on_card = self.dev.type == "cuda"
+        t0 = time.perf_counter()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            self.free[name] = torch.cuda.mem_get_info(self.dev)[0] / 2 ** 30
+        out = fn()
+        self.parts[name] = time.perf_counter() - t0
+        if on_card:
+            self.peaks[name] = (torch.cuda.max_memory_allocated(self.dev)
+                                / 2 ** 30)
+            torch.cuda.empty_cache()
+        return out
 
     def note(self, line):
         if self.rank == 0:
@@ -3776,24 +3939,33 @@ def mesh_rank(rank, refs_path, small, global_ms):
         + ": psum / pmean / pmax = all_gather, then a fold in mesh order; "
         "all_gather; all_to_all; ppermute = all_to_all with one nonempty "
         "split (host: gloo, CUDA tensors staged through host memory)")
-    parts, peaks, calls = {}, {}, []
+    _MESH_RANK[:] = [r]
+    calls = []
     for name, part in (("moe bf16", lambda: mesh_moe_paths(r, "bfloat16")),
                        ("model", lambda: mesh_model(r)),
                        ("moe f32", lambda: mesh_moe_paths(r, "float32")),
                        ("collectives", lambda: mesh_collectives(r) or [])):
-        t0 = time.perf_counter()
-        if r.dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(r.dev)
-        calls += part()
-        parts[name] = time.perf_counter() - t0
-        if r.dev.type == "cuda":
-            peaks[name] = torch.cuda.max_memory_allocated(r.dev) / 2 ** 30
+        calls += r.part(name, part)
     ran = {path for path, n in calls if n}
     r.gate(ran == {"sharded", "a2a", "decode"},
            f"mesh: the MoE paths that ran are {sorted(ran)}")
     return {"lines": r.lines, "checks": r.checks, "digests": r.digests,
-            "entered": r.entered, "startup_s": r.startup_s, "parts": parts,
-            "peaks": peaks}
+            "entered": r.entered, "startup_s": r.startup_s,
+            "parts": r.parts, "peaks": r.peaks, "free": r.free}
+
+
+def mesh_train_rank(rank, refs_path):
+    """The mesh phase's second run on the same ranks (`mesh_rank` ran
+    first): the partitioned train step against the one-rank step that
+    `run_mesh` ran in between (its references in `refs_path`)."""
+    r = _MESH_RANK[0]
+    r.refs = torch.load(refs_path) if rank == 0 else None
+    r.lines, r.checks, r.digests = [], [], {}
+    r.parts, r.peaks, r.free = {}, {}, {}
+    r.part("train", lambda: mesh_train(r) or [])
+    return {"lines": r.lines, "checks": r.checks, "digests": r.digests,
+            "parts": r.parts, "peaks": r.peaks, "free": r.free,
+            "train": r.train}
 
 
 def mesh_moe_paths(r: MeshRank, dtype: str) -> list:
@@ -3934,6 +4106,111 @@ def mesh_model(r: MeshRank) -> list:
     if r.dev.type == "cuda":
         torch.cuda.empty_cache()
     return list(calls.items())
+
+
+def mesh_train(r: MeshRank) -> None:
+    """StableLM-1.6B's partitioned train step (`distributed.partition`):
+    MESH_TRAIN_STEPS steps on (data 2, model 2) from the seeded state,
+    each rank on its blocks and its rows of the batch; step 0 replayed
+    from a copy of its state; one step on (data 1, model 4).  Every rank
+    holds its step-0 gradients (AdamW's mu / (1 - b1)) against its block
+    of the one-rank step's; rank 0 gates the losses and norms against
+    the one-rank steps (`mesh_train_reference`)."""
+    import struct
+
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import block_of, spec_leaves
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    cfg, api, tc, data = mesh_train_setup(r.small, r.dev)
+    ref = torch.load(r.grads_path, mmap=True)
+    b1 = OptimizerConfig().b1
+    runs = {}
+    for name, n_steps in (("2x2", MESH_TRAIN_STEPS), ("1x4", 1)):
+        mesh = r.meshes[name]
+        part = partition.RankLayout(cfg, mesh)
+        params = mesh_train_params(api, r.dev)
+        if name == "2x2":
+            r.digests["train inputs"] = [bits_digest(t)
+                                         for t in leaves(params)[:4]]
+        blocks = partition.cut(params, part.param_specs, mesh)
+        del params
+        opt = make_optimizer(tc.optimizer)[0](blocks)
+        step = make_train_step(api, tc, mesh)
+        rows, snap = [], None
+        for i in range(n_steps):
+            b = partition.batch_block(data.batch_at(i), mesh)
+            if i == 0 and name == "2x2":
+                snap = tree_map(torch.clone, (blocks, opt))
+            (blocks, opt, m), *t = r.timed(lambda: step(blocks, opt, b))
+            rows.append((float(m["loss"]), float(m["grad_norm"]), *t))
+            r.digests[f"train {name} step {i}"] = struct.pack(
+                "<ff", rows[-1][0], rows[-1][1])
+            if i == 0:
+                err = 0.0
+                for mu, g, mx, spec in zip(
+                        leaves(opt.mu), ref["grads"], ref["max"],
+                        spec_leaves(part.param_specs)):
+                    want = block_of(g, spec, mesh).to(r.dev)
+                    err = max(err, float((mu / (1 - b1) - want).abs().max())
+                              / max(mx, 1e-30))
+                r.train[f"{name} grad_err"] = err
+        if snap is not None:
+            (p0, o0), b = snap, partition.batch_block(data.batch_at(0), mesh)
+            (_, _, m), *t = r.timed(lambda: step(p0, o0, b))
+            runs["replay"] = (float(m["loss"]), float(m["grad_norm"]), *t)
+            del snap, p0, o0
+        runs[name] = rows
+        del blocks, opt
+        if r.dev.type == "cuda":
+            torch.cuda.empty_cache()
+    r.train["rows"] = runs
+    if r.rank == 0:
+        want = r.refs["train"]
+        r.gate(r.digests["train inputs"] == want["inputs"],
+               "mesh train: the ranks' parameters differ from the parent's")
+        card = r.refs["card"]
+        for name in ("2x2", "1x4"):
+            for i, (loss, gn, ms, host_ms, coll_ms, coll_mb) in enumerate(
+                    runs[name]):
+                lo1, gn1, ms1 = want["rows"][i]
+                el, eg = abs(loss / lo1 - 1), abs(gn / gn1 - 1)
+                ok = el <= MESH_TRAIN_RTOL and eg <= MESH_TRAIN_RTOL
+                r.gate(ok, f"mesh train {name} step {i}: loss {loss:.7g} vs "
+                           f"{lo1:.7g}, grad_norm {gn:.7g} vs {gn1:.7g}")
+                r.note(f"mesh train {name} step {i}: loss={loss:.6f} "
+                       f"grad_norm={gn:.6f}; one rank loss={lo1:.6f} "
+                       f"grad_norm={gn1:.6f} rel_err loss={el:.3g} "
+                       f"grad_norm={eg:.3g} (gate {MESH_TRAIN_RTOL}); the "
+                       f"step {r.time_note(ms, host_ms, coll_ms, coll_mb)}; "
+                       f"one-rank step ms={ms1:.1f} [{card}]")
+        loss, gn, ms, host_ms, coll_ms, coll_mb = runs["replay"]
+        rel = abs(loss / runs["2x2"][0][0] - 1)
+        r.gate(rel <= MESH_TRAIN_REPLAY_RTOL,
+               f"mesh train replay: loss {loss:.9g} vs "
+               f"{runs['2x2'][0][0]:.9g}")
+        r.note(f"mesh train 2x2 step 0 replayed from a copy of its state: "
+               f"loss={loss:.6f} rel_err={rel:.3g} (gate "
+               f"{MESH_TRAIN_REPLAY_RTOL}) host_ms={host_ms:.1f} [{card}]")
+    return None
+
+
+def mesh_train_summary(ranks) -> None:
+    """The partitioned step's cross-rank gates: step 0's gradients on
+    every rank within MESH_TRAIN_GRAD_TOL of the one-rank step's leaf
+    maxima (the loss and norm bits are in the ranks' digests)."""
+    for name in ("2x2", "1x4"):
+        errs = [q["train"][f"{name} grad_err"] for q in ranks]
+        ok = max(errs) <= MESH_TRAIN_GRAD_TOL
+        check(ok, f"mesh train {name}: step 0's gradients differ from the "
+                  f"one-rank step's by {max(errs):.3g} of a leaf's max")
+        log(f"mesh train {name}: step 0's gradients (mu / (1 - b1)) vs the "
+            f"one-rank step's, max over each rank's blocks of |diff| / the "
+            f"leaf's max |g|: " + ", ".join(
+                f"rank {i} {e:.3g}" for i, e in enumerate(errs))
+            + f" (gate {MESH_TRAIN_GRAD_TOL}) ok={ok} [{CARD[0]}]")
 
 
 def mesh_collectives(r: MeshRank) -> None:

@@ -16,9 +16,11 @@ Logical axes:
   model  -> "model"
   None   -> replicated (and so is an axis the mesh does not have)
 
-Every rank holds the global activations.  `constrain`, which in the
-reference changes an array's placement and never its values, is
-therefore the identity with or without a mesh.
+`constrain`, which in the reference changes an array's placement and
+never its values, is the identity with or without a mesh: outside the
+partitioned step every rank holds the global activations, and inside it
+(`distributed.partition`) each rank holds its `dp` block of them, which
+it already holds where the reference constrains a value.
 
 `shard_map(body, mesh, in_specs, out_specs)` runs `body` on each rank's
 blocks: a spec is a `P` (the counterpart of `PartitionSpec`: one entry
@@ -44,7 +46,14 @@ Each is built on two exchanges, an all-gather and an all-to-all:
   psum_scatter       all-to-all, then the received chunks added in
                      mesh order
 `torch.distributed` carries no gradient, so `shard_map` refuses inputs
-that require one (training on a mesh is ROADMAP A11, slice 3f).
+that require one: a differentiable `shard_map`, which the MoE mesh
+paths need in order to train, is ROADMAP A11, slice 3g.  The dense
+decoders train on a mesh through `distributed.autograd`'s collectives
+instead (`distributed.partition`).
+
+`bind_axes(mesh)` binds the collectives to a mesh's axes outside a
+`shard_map` body: the partitioned step runs inside it on each rank's
+blocks.
 
 `STATS` counts the exchanges' calls and bytes sent, and their host wall
 seconds with the staging copies (a host-staged exchange first waits for
@@ -76,8 +85,9 @@ _state = threading.local()
 #: "calls", "bytes" (sent by this rank) and "seconds" of the exchanges
 STATS: collections.Counter = collections.Counter()
 
-MESH_TRAINING = ("training on a mesh (ROADMAP A11, slice 3f): "
-                 "torch.distributed collectives carry no gradient")
+MESH_TRAINING = ("a differentiable shard_map, for the MoE mesh paths "
+                 "(ROADMAP A11, slice 3g): torch.distributed collectives "
+                 "carry no gradient")
 
 
 class P(tuple):
@@ -151,8 +161,10 @@ def logical_spec(mesh, *logical_axes) -> P:
 
 
 def constrain(x: torch.Tensor, *logical_axes) -> torch.Tensor:
-    """The identity: a sharding constraint moves no values, and every
-    rank holds the global activations."""
+    """The identity: a sharding constraint moves no values.  Outside the
+    partitioned step every rank holds the global activations; inside it
+    the activations a rank holds are its `dp` rows, replicated over
+    `model`, which is what the reference's constraints ask for."""
     return x
 
 
@@ -207,15 +219,23 @@ def shard_map(body: Callable, mesh, in_specs: Sequence, out_specs):
         tree_map(_refuse_grad, args)
         blocks = _map_specs(lambda x, s: block_of(x, s, mesh), list(args),
                             list(in_specs))
-        prev = getattr(_state, "shard", None)
-        _state.shard = mesh
-        try:
+        with bind_axes(mesh):
             out = body(*blocks)
-        finally:
-            _state.shard = prev
         return _map_specs(lambda y, s: _assemble(y, s, mesh), out,
                           out_specs)
     return run
+
+
+@contextlib.contextmanager
+def bind_axes(mesh):
+    """A context in which the collectives act over `mesh`'s axes, as in a
+    `shard_map` body: each rank runs the code on the blocks it holds."""
+    prev = getattr(_state, "shard", None)
+    _state.shard = mesh
+    try:
+        yield mesh
+    finally:
+        _state.shard = prev
 
 
 # ---------------------------------------------------------------------------
@@ -357,12 +377,19 @@ def ppermute(x: torch.Tensor, axis_name: str, perm) -> torch.Tensor:
 def psum_scatter(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     """`jax.lax.psum_scatter(x, axis_name, scatter_dimension=0,
     tiled=True)`: member j keeps the j-th chunk of dim 0 of the sum."""
-    mesh = _bound(axis_name)
+    return reduce_scatter(x, _bound(axis_name), axis_name)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis_name: str,
+                   dim: int = 0) -> torch.Tensor:
+    """Member j's j-th chunk along `dim` of the members' sum, the chunks
+    received added in mesh order."""
     n = mesh_dict(mesh)[axis_name]
     if n == 1:
         return x
     _observe("reduce-scatter", _bytes(x), n)
-    chunk = x.numel() // n
-    recv = _exchange(x, mesh, axis_name, [chunk] * n, [chunk] * n,
-                     (n, x.shape[0] // n) + tuple(x.shape[1:]))
-    return functools.reduce(torch.add, recv.unbind(0))
+    y = x.movedim(dim, 0).contiguous()
+    chunk = y.numel() // n
+    recv = _exchange(y, mesh, axis_name, [chunk] * n, [chunk] * n,
+                     (n, y.shape[0] // n) + tuple(y.shape[1:]))
+    return functools.reduce(torch.add, recv.unbind(0)).movedim(0, dim)

@@ -242,6 +242,31 @@ def cache_specs(cache_shape: Params, cfg: ModelConfig, mesh) -> Params:
     return map_with_keys(one, cache_shape)
 
 
+def map_specs(fn, specs):
+    """fn over the `P` leaves of a spec tree (a P is a tuple, but a leaf
+    here)."""
+    if isinstance(specs, P):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, tuple) and hasattr(type(specs), "_fields"):
+        return type(specs)(*(map_specs(fn, v) for v in specs))
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(map_specs(fn, v) for v in specs)
+    return specs
+
+
+def spec_leaves(specs) -> list:
+    """The `P` leaves of a spec tree in JAX's order (dict keys sorted)."""
+    if isinstance(specs, P):
+        return [specs]
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    if isinstance(specs, (list, tuple)):
+        return [s for v in specs for s in spec_leaves(v)]
+    return []
+
+
 def spec_axes(entry) -> tuple:
     """The axis names of one spec entry (None, a name or a tuple)."""
     if entry is None:

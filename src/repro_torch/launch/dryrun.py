@@ -14,18 +14,25 @@ step runs once under `roofline.op_costs.CostCounter`
 
 `--local` runs each cell on the one-rank mesh {data: 1, model: 1},
 where the trace is exactly the step the port runs.  On the production
-meshes (16 x 16, or 2 x 16 x 16 with --multi-pod) a cell builds its plan
-and records its specs' per-rank `memory` and `model_flops`, then ends in
-the error branch with NotImplementedError: per-rank costs need the
-partitioned step, which the port does not have yet (ROADMAP A11, slice
-3f; every rank holds the global activations).
+meshes (16 x 16, or 2 x 16 x 16 with --multi-pod) a cell builds a
+"fake" world of 256 or 512 ranks in this process (a `FakeProcessGroup`:
+no peers, no traffic; a child process when this one is in a world
+already), the mesh over it (`launch.mesh.make_mesh`), and traces rank
+0's partitioned step (`distributed.partition`) on its blocks of the
+inputs: per-rank FLOPs, bytes and the collectives' wire bytes, as the
+reference reads them from XLA's per-device module.  The dense decoders
+have a partitioned step; the other families' cells record the plan's
+memory and end in NotImplementedError (ROADMAP A11, slice 3g).
 
 The record keys are the reference's, with these differences:
   lower_s      the trace's seconds (the reference: lowering)
   compile_s    absent (no compiler)
   memory       argument_size_in_bytes and alias_size_in_bytes only
-               (`LoweredPlan.memory`); the output, temp and generated-
-               code sizes come from a compiler the port does not have
+               (`LoweredPlan.memory`, under the reference's specs); the
+               output, temp and generated-code sizes come from a
+               compiler the port does not have.  The partitioned decode
+               step holds a cache split by rows and KV heads, where the
+               reference's specs split it by rows and sequence
   cost         the counted totals under XLA's cost_analysis names
                ("flops", "transcendentals", "bytes accessed") and
                "matmul flops"
@@ -37,8 +44,10 @@ The record keys are the reference's, with these differences:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import multiprocessing
 import os
 import time
 import traceback
@@ -49,10 +58,6 @@ from repro_torch.launch.steps import build_plan, optimizer_for
 from repro_torch.roofline import analysis as roofline
 
 LOCAL_MESH = {"data": 1, "model": 1}
-PARTITIONED = ("per-rank costs on a mesh of {n} ranks need the "
-               "partitioned step (ROADMAP A11, slice 3f): every rank "
-               "holds the global activations, so a trace would count the "
-               "whole step on each")
 
 
 def production_mesh(multi_pod: bool) -> dict:
@@ -86,13 +91,57 @@ def trace_tag(arch: str, shape_name: str, tag: str, profile: str) -> str:
             + ("" if profile == "baseline" else f"_{profile}"))
 
 
+@contextlib.contextmanager
+def fake_world(mesh: dict):
+    """A world of prod(mesh) ranks in this process, this one rank 0, over
+    a "fake" process group (collectives move nothing), and the mesh over
+    it; the group is destroyed on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(mesh.values()))
+    try:
+        yield make_mesh(tuple(mesh.values()), tuple(mesh))
+    finally:
+        dist.destroy_process_group()
+
+
+def _cell_child(conn, args):
+    try:
+        conn.send(_run_cell(*args))
+    finally:
+        conn.close()
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
              trace_dir: str | None = None, save_trace: bool = False,
              profile: str = "baseline", local: bool = False) -> dict:
+    import torch.distributed as dist
+
+    args = (get_config(arch), arch, shape_name, multi_pod, trace_dir,
+            save_trace, profile, local)
+    if not local and dist.is_initialized():
+        # the fake world needs the process's default group: a child's
+        ctx = multiprocessing.get_context("spawn")
+        parent, child = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=_cell_child, args=(child, args))
+        proc.start()
+        child.close()
+        try:
+            return parent.recv()
+        finally:
+            proc.join()
+    return _run_cell(*args)
+
+
+def _run_cell(cfg, arch, shape_name, multi_pod, trace_dir, save_trace,
+              profile, local) -> dict:
     from repro_torch.models import tuning
     tuning.set_profile(profile)
 
-    cfg = get_config(arch)
     shape = SHAPES[shape_name]
     mesh = LOCAL_MESH if local else production_mesh(multi_pod)
     n_chips = math.prod(mesh.values())
@@ -110,10 +159,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         mem = plan.memory(mesh)
         mf = model_flops(cfg, shape)
         rec.update(memory=mem, model_flops=mf)
-        if n_chips > 1:
-            raise NotImplementedError(PARTITIONED.format(n=n_chips))
         t0 = time.time()
-        counter = plan.trace()
+        if n_chips > 1:
+            from repro_torch.distributed.partition import \
+                require_partitioned
+            require_partitioned(cfg)
+            with fake_world(mesh) as dmesh:
+                counter = plan.trace(dmesh)
+        else:
+            counter = plan.trace()
         rec["lower_s"] = round(time.time() - t0, 2)
         costs = counter.costs()
         cost = {"flops": float(costs.flops),

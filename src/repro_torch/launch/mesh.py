@@ -80,13 +80,29 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
     return make_mesh(shape, axes)
 
 
-def make_local_mesh(model: int = 1) -> DeviceMesh:
-    """Whatever this world has; a process outside a launched world is a
+def make_local_mesh(model: int = 1, device=None) -> DeviceMesh:
+    """The world as it is, as a (data, model) mesh with `model` ranks on
+    the model axis: a launched world (`World`, `launch`), else torchrun's
+    (`WORLD_SIZE`, `RANK` and the rendezvous in the environment; the
+    backend `world_plan`'s for `device`, each rank on its card), else a
     world of one rank (gloo, in-process store)."""
     if not dist.is_initialized():
-        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
-                                world_size=1, timeout=TIMEOUT)
+        if "WORLD_SIZE" in os.environ:
+            n, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+            backend, devices = world_plan(n, device)
+            if devices[rank].type == "cuda":
+                torch.cuda.set_device(devices[rank])
+            dist.init_process_group(backend, rank=rank, world_size=n,
+                                    timeout=TIMEOUT)
+        else:
+            dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                    world_size=1, timeout=TIMEOUT)
     n = dist.get_world_size()
+    if model < 1 or n % model:
+        raise ValueError(f"a model axis of {model} ranks does not divide "
+                         f"this world of {n} rank{'s' * (n != 1)}: start "
+                         "a world whose size it divides (launch.mesh.World "
+                         "or torchrun --nproc-per-node)")
     return make_mesh((n // model, model), ("data", "model"))
 
 

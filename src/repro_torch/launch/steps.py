@@ -26,7 +26,14 @@ one step's device-memory traffic from below, for a roofline share that
 the plain path's counted bytes would flatter.
 
 The mesh is a `DeviceMesh` or a plain {axis: size} dict, as the sharding
-rules take it.
+rules take it.  A plan's inputs are the global ones; on a `DeviceMesh`
+of more than one rank, `trace(mesh)` traces this rank's part of the
+step instead (`rank_step`): the partitioned step
+(`distributed.partition`) on the rank's blocks of the inputs -- the
+parameters' and optimizer state's under their specs, the batch's `dp`
+rows, the cache's rows and the KV heads the rank's query heads read --
+with the collectives it calls (the dense decoders; other families raise
+NotImplementedError, ROADMAP A11, slice 3g).
 """
 from __future__ import annotations
 
@@ -37,11 +44,14 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import partition
 from repro_torch.distributed import sharding as shard_rules
-from repro_torch.distributed.api import P, mesh_dict
-from repro_torch.models import registry
+from repro_torch.distributed.api import P, bind_axes, mesh_dict
+from repro_torch.distributed.sharding import spec_leaves
+from repro_torch.models import registry, transformer
 from repro_torch.models.convert import (cache_from_reference,
                                         cache_into_reference,
+                                        cache_to_reference,
                                         params_from_reference,
                                         params_to_reference)
 from repro_torch.optim import OptimizerConfig, make_optimizer
@@ -57,17 +67,6 @@ ADAFACTOR_THRESHOLD = 2.0e11
 def optimizer_for(cfg: ModelConfig) -> OptimizerConfig:
     name = "adafactor" if cfg.param_count() > ADAFACTOR_THRESHOLD else "adamw"
     return OptimizerConfig(name=name)
-
-
-def spec_leaves(specs) -> list:
-    """The `P` leaves of a spec tree in JAX's order (dict keys sorted)."""
-    if isinstance(specs, P):
-        return [specs]
-    if isinstance(specs, dict):
-        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
-    if isinstance(specs, (list, tuple)):
-        return [s for v in specs for s in spec_leaves(v)]
-    return []
 
 
 def block_bytes(x: torch.Tensor, spec: P, mesh) -> int:
@@ -90,15 +89,24 @@ class LoweredPlan:
     in_shardings: Tuple
     out_shardings: Any
     donate: Tuple[int, ...]
+    rank_step: Optional[Callable] = None
 
-    def trace(self):
+    def trace(self, mesh=None):
         """Run the step once on its fake inputs under a cost counter;
         -> the `op_costs.CostCounter` (rows, costs, top ops, the inputs
-        the step touched)."""
+        the step touched, the collectives' wire bytes).  `mesh`: a
+        `DeviceMesh` of more than one rank -- this rank's part of the
+        step on its blocks (`rank_step(mesh)` -> (step, inputs))."""
         from repro_torch.roofline.op_costs import CostCounter
-        with registry.fake_mode(), \
-                CostCounter(watch=leaves(self.in_specs)) as counter:
-            self.fn(*self.in_specs)
+        fn, args = self.fn, self.in_specs
+        with registry.fake_mode():
+            if partition.is_partitioned(mesh):
+                if self.rank_step is None:
+                    raise NotImplementedError(
+                        f"no partitioned {self.kind} step")
+                fn, args = self.rank_step(mesh)
+            with CostCounter(watch=leaves(args)) as counter:
+                fn(*args)
         return counter
 
     def floor_bytes(self, counter) -> int:
@@ -132,6 +140,10 @@ class LoweredPlan:
                 "alias_size_in_bytes": sum(per_arg[i] for i in self.donate)}
 
 
+#: the mesh a plan's global `fn` runs on
+_ONE_RANK = {"data": 1, "model": 1}
+
+
 def params_and_shardings(cfg: ModelConfig, mesh):
     """(api, fake parameters in the reference's layout, their specs)."""
     api = registry.get_model(cfg)
@@ -163,14 +175,34 @@ def build_train_plan(cfg: ModelConfig, shape: ShapeConfig, mesh,
     batch = registry.input_specs(cfg, shape)
     bspecs = shard_rules.batch_specs(batch, mesh)
     metrics_spec = {"loss": P(), "grad_norm": P(), "lr": P()}
+
+    def rank_step(dmesh):
+        part = partition.RankLayout(cfg, dmesh)
+        ospecs_ = shard_rules.opt_state_specs(opt, params, cfg, dmesh)
+        return make_train_step(api, tc, dmesh), (
+            partition.cut(params, part.param_specs, dmesh, copy=False),
+            partition.cut(opt, ospecs_, dmesh, copy=False),
+            partition.batch_block(batch, dmesh))
+
     return LoweredPlan(
         kind="train",
-        fn=make_train_step(api, tc),
+        fn=make_train_step(api, tc, mesh=_ONE_RANK),
         in_specs=(params, opt, batch),
         in_shardings=(pspecs, ospecs, bspecs),
         out_shardings=(pspecs, ospecs, metrics_spec),
         donate=(0, 1),
+        rank_step=rank_step,
     )
+
+
+def _rank_serving(cfg: ModelConfig, params, dmesh):
+    """(the rank's layout, its parameter blocks) for a serving step."""
+    part = partition.RankLayout(cfg, dmesh)
+    return part, partition.cut(params, part.param_specs, dmesh, copy=False)
+
+
+def _rows(shape: ShapeConfig, dmesh) -> int:
+    return shape.global_batch // partition.dp_size(dmesh)
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +229,22 @@ def build_prefill_plan(cfg: ModelConfig, shape: ShapeConfig,
                                   use_kernels=False, cache=views)
         return logits, cache_into_reference(cache, views, new, cfg)
 
+    def rank_step(dmesh):
+        part, blocks = _rank_serving(cfg, params, dmesh)
+        rows = partition.batch_block(batch, dmesh)
+        with registry.fake_mode():
+            local = cache_to_reference(transformer.init_cache(
+                cfg, _rows(shape, dmesh), shape.seq_len, "cpu", part), cfg)
+
+        def step(params, batch):
+            views = cache_from_reference(local, cfg)
+            with bind_axes(dmesh):
+                logits, new = api.prefill(
+                    _port_params(params, cfg), batch, shape.seq_len,
+                    use_kernels=False, cache=views, part=part)
+            return logits, cache_into_reference(local, views, new, cfg)
+        return step, (blocks, rows)
+
     cspecs = shard_rules.cache_specs(template, cfg, mesh)
     return LoweredPlan(
         kind="prefill",
@@ -205,6 +253,7 @@ def build_prefill_plan(cfg: ModelConfig, shape: ShapeConfig,
         in_shardings=(pspecs, bspecs),
         out_shardings=(None, cspecs),
         donate=(),
+        rank_step=rank_step,
     )
 
 
@@ -226,6 +275,19 @@ def build_decode_plan(cfg: ModelConfig, shape: ShapeConfig,
                                       tokens, use_kernels=False)
         return logits, cache_into_reference(cache, views, new, cfg)
 
+    def rank_step(dmesh):
+        part, blocks = _rank_serving(cfg, params, dmesh)
+
+        def step(params, cache, tokens):
+            views = cache_from_reference(cache, cfg)
+            with bind_axes(dmesh):
+                logits, new = api.decode_step(
+                    _port_params(params, cfg), views, tokens,
+                    use_kernels=False, part=part)
+            return logits, cache_into_reference(cache, views, new, cfg)
+        return step, (blocks, partition.cache_block(cache, part),
+                      partition.batch_block(tokens, dmesh))
+
     return LoweredPlan(
         kind="decode",
         fn=serve_step,
@@ -233,6 +295,7 @@ def build_decode_plan(cfg: ModelConfig, shape: ShapeConfig,
         in_shardings=(pspecs, cspecs, tspecs),
         out_shardings=(None, cspecs),
         donate=(1,),
+        rank_step=rank_step,
     )
 
 

@@ -23,6 +23,11 @@ Attention has two routes, chosen by `use_kernels`:
     CPU tensors run their plain versions;
   * the plain attention (`use_kernels=False`): `_sdpa_chunked`, the
     reference's query-chunked softmax over the whole cache, transcribed.
+
+`part=` (a `distributed.partition.RankLayout`) runs a rank's part of the
+partitioned step: its query and KV heads, Megatron's f before the
+column-parallel products and g after the row-parallel ones, and the
+vocab-parallel loss (`lm_loss`).  None is the whole model on one rank.
 """
 from __future__ import annotations
 
@@ -342,7 +347,7 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     kv_x: Optional[torch.Tensor] = None, causal: bool = True,
                     cache: Optional[Params] = None, cache_pos=None,
                     index: Optional[CacheIndex] = None, rope=None,
-                    use_kernels: bool = True):
+                    use_kernels: bool = True, part=None):
     """Returns (out, new_cache).  Self-attention unless `kv_x` (B, S_kv,
     d) is given: cross-attention, K and V from kv_x, no RoPE, no cache
     and no causal mask (the reference's `_sdpa_chunked(causal=False)`).
@@ -351,18 +356,23 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     (the reference is functional and returns new arrays); cache_pos:
     (B,) write positions.  `index`: `cache_index(...)` -- for
     cross-attention `kv_index(...)` -- and `rope`: `rope_tables(...)`,
-    when the caller made them for every layer."""
+    when the caller made them for every layer.  `part`: this rank's query
+    and KV heads of the partitioned step (self-attention)."""
     b, s, _ = x.shape
     hd = cfg.hd
+    n_q, n_kv = (cfg.n_heads, cfg.n_kv_heads) if part is None \
+        else (part.n_q, part.n_kv)
+    if part is not None:
+        x = part.enter(x)
     src = x if kv_x is None else kv_x
     q = x @ p["wq"]
     k = src @ p["wk"]
     v = src @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, src.shape[1], cfg.n_kv_heads, hd)
-    v = v.reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    q = q.reshape(b, s, n_q, hd)
+    k = k.reshape(b, src.shape[1], n_kv, hd)
+    v = v.reshape(b, src.shape[1], n_kv, hd)
     if cfg.qk_norm:
         q = _qk_norm(p["q_norm"], q)
         k = _qk_norm(p["k_norm"], k)
@@ -408,8 +418,8 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                          window=cfg.attn_window)
         else:
             out = _paged(q, ck, cv, index)
-    out = out.to(x.dtype).reshape(b, s, cfg.n_heads * hd)
-    return out @ p["wo"], new_cache
+    out = out.to(x.dtype).reshape(b, s, n_q * hd) @ p["wo"]
+    return (out if part is None else part.leave(out)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -427,13 +437,17 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device,
     return p
 
 
-def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor, part=None
+              ) -> torch.Tensor:
+    if part is not None:
+        x = part.enter(x)
     up = x @ p["w_up"]
     if cfg.act == "swiglu":
         up = F.silu(x @ p["w_gate"]) * up
     else:
         up = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
-    return up @ p["w_down"]
+    out = up @ p["w_down"]
+    return out if part is None else part.leave(out)
 
 
 # ---------------------------------------------------------------------------
@@ -441,24 +455,44 @@ def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def lm_loss(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
-            n_chunks: int = 8) -> torch.Tensor:
+            n_chunks: int = 8, part=None) -> torch.Tensor:
     """Cross-entropy( x @ head , labels ) without materializing full logits.
 
     x: (B, S, d), head: (d, V), labels: (B, S) int (-1 = masked).
-    Chunked over S: transient logits are (B, S/n_chunks, V)."""
+    Chunked over S: transient logits are (B, S/n_chunks, V).  `part`:
+    vocab-parallel over this rank's (d, V / model) head block -- the
+    log-sum-exp shifted by the `pmax` of the blocks' maxima, its
+    exponentials summed over `model`, the gold logit from the rank that
+    holds the label -- and the total and count summed over `dp`: the
+    global mean on every rank."""
     b, s, _ = x.shape
     if s % n_chunks != 0:
         n_chunks = 1
     cs = s // n_chunks
+    if part is not None:
+        x = part.enter(x)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(n_chunks):
         xi, li = x[:, c * cs:(c + 1) * cs], labels[:, c * cs:(c + 1) * cs]
         logits = (xi @ head).float()                   # (B, cs, V)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, li.clamp(min=0).long()[..., None])[..., 0]
+        if part is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, li.clamp(min=0).long()[..., None])
+            gold = gold[..., 0]
+        else:
+            m = part.vocab_max(logits.amax(-1))
+            logz = m + torch.log(part.vocab_sum(
+                torch.exp(logits - m[..., None]).sum(-1)))
+            local = li.long() - part.vocab0
+            mine = (local >= 0) & (local < part.n_vocab)
+            idx = local.clamp(0, part.n_vocab - 1)[..., None]
+            g = logits.gather(-1, idx)
+            gold = part.vocab_sum(torch.where(mine, g[..., 0], 0.0))
         valid = (li >= 0).float()
         tot = tot + ((logz - gold) * valid).sum()
         cnt = cnt + valid.sum()
+    if part is not None:
+        tot, cnt = part.dp_sum(tot), part.dp_sum(cnt)
     return tot / cnt.clamp(min=1.0)
 

@@ -22,6 +22,13 @@ losses included); `remat` recomputes each layer's activations in the
 backward pass (`torch.utils.checkpoint` per layer, where the reference
 checkpoints each scanned super-block: the same recomputation).
 
+`part=` (a `distributed.partition.RankLayout`) runs one rank's part of
+the partitioned step: the parameters given are the rank's blocks (in the
+model's per-layer layout), each layer's weights made from them at the
+start of the layer (inside its recomputation, under remat: gathered
+again in the backward pass, as FSDP does), the cache the rank's rows and
+KV heads (`init_cache(part=)`), the logits its vocab block.
+
 The encoder-decoder is `models.whisper`'s: its config raises
 NotImplementedError here (`registry.get_model` dispatches it).
 """
@@ -110,7 +117,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
 
 def apply_block(p: Params, cfg: ModelConfig, kind: str, is_moe: bool,
                 x: torch.Tensor, positions, cache: Optional[Params],
-                cache_pos, *, index=None, rope=None, use_kernels: bool = True
+                cache_pos, *, index=None, rope=None, use_kernels: bool = True,
+                part=None
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Returns (x, new_cache, aux_loss_scalar)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -119,7 +127,7 @@ def apply_block(p: Params, cfg: ModelConfig, kind: str, is_moe: bool,
         out, new_kv = apply_attention(
             p["attn"], cfg, h, positions,
             cache=cache["kv"] if cache else None, cache_pos=cache_pos,
-            index=index, rope=rope, use_kernels=use_kernels)
+            index=index, rope=rope, use_kernels=use_kernels, part=part)
         new_cache = {"kv": new_kv} if new_kv is not None else None
     elif kind == "mamba":
         out, new_ms = _mamba.apply_mamba(
@@ -148,15 +156,15 @@ def apply_block(p: Params, cfg: ModelConfig, kind: str, is_moe: bool,
             new_cache["channel"] = new_cs
         x = x + co
     else:
-        x = x + apply_mlp(p["mlp"], cfg, h2)
+        x = x + apply_mlp(p["mlp"], cfg, h2, part=part)
     x = constrain(x, "dp", None, None)
     return x, new_cache, aux
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     device) -> Params:
+                     device, n_kv: Optional[int] = None) -> Params:
     if kind == "attn":
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+        shape = (batch, max_len, n_kv or cfg.n_kv_heads, cfg.hd)
         return {"kv": {"k": torch.zeros(shape, dtype=dtype_of(cfg),
                                         device=device),
                        "v": torch.zeros(shape, dtype=dtype_of(cfg),
@@ -223,10 +231,13 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> Params:
+               device=None, part=None) -> Params:
+    """`part`: a rank's cache of the partitioned step, `batch` its rows
+    and the KV heads its query heads read."""
     require_supported(cfg)
     dev = resolve_device(device)
-    return {"layers": [init_block_cache(cfg, kind, batch, max_len, dev)
+    n_kv = part.n_kv if part is not None else None
+    return {"layers": [init_block_cache(cfg, kind, batch, max_len, dev, n_kv)
                        for kind, _ in layer_layout(cfg)],
             # per-slot positions: serving slots sit at different depths
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
@@ -268,7 +279,8 @@ def _first_kv(cache: Params) -> Optional[torch.Tensor]:
 
 def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
             cache: Optional[Params] = None, remat: str = "full",
-            use_kernels: bool = True, cache_start: Optional[int] = None
+            use_kernels: bool = True, cache_start: Optional[int] = None,
+            part=None
             ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """-> (hidden (B,S,d), new_cache, aux_loss).
 
@@ -276,10 +288,12 @@ def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
     aux_loss sums the MoE layers' balance and z-losses (0 without MoE).
     `remat` ("none", "dots", "full") applies to a forward without a
     cache that autograd records.  `cache_start`: where a multi-token
-    call writes the cache, when the caller knows it (`cache_index`)."""
+    call writes the cache, when the caller knows it (`cache_index`).
+    `part`: one rank's part of the partitioned step (module docstring)."""
     require_supported(cfg)
     if embeds is None:
-        embeds = params["embed"][tokens.long()]
+        embeds = params["embed"][tokens.long()] if part is None \
+            else part.embed(params["embed"], tokens)
     x = constrain(embeds, "dp", None, None)
     b, s, _ = x.shape
     dev = x.device
@@ -301,32 +315,45 @@ def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
     if cache is not None or not torch.is_grad_enabled():
         remat_kw = None
 
-    def train_block(p, kind, is_moe, x):
-        x, _, aux = apply_block(p, cfg, kind, is_moe, x, positions, None,
-                                None, rope=rope, use_kernels=use_kernels)
+    def weights(i, p):
+        return p if part is None else part.layer(i, p)
+
+    def train_block(i, p, kind, is_moe, x):
+        x, _, aux = apply_block(weights(i, p), cfg, kind, is_moe, x,
+                                positions, None, None, rope=rope,
+                                use_kernels=use_kernels, part=part)
         return x, aux
 
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     new_layers = []
     for i, (p, (kind, is_moe)) in enumerate(zip(params["layers"], layout)):
         if remat_kw is not None:
-            x, aux = checkpoint(train_block, p, kind, is_moe, x, **remat_kw)
+            x, aux = checkpoint(train_block, i, p, kind, is_moe, x,
+                                **remat_kw)
         else:
             blk_cache = cache["layers"][i] if cache is not None else None
-            x, nc, aux = apply_block(p, cfg, kind, is_moe, x, positions,
-                                     blk_cache, cache_pos, index=index,
-                                     rope=rope, use_kernels=use_kernels)
+            x, nc, aux = apply_block(weights(i, p), cfg, kind, is_moe, x,
+                                     positions, blk_cache, cache_pos,
+                                     index=index, rope=rope,
+                                     use_kernels=use_kernels, part=part)
             new_layers.append(nc if nc is not None else blk_cache)
         aux_total = aux_total + aux
 
-    x = apply_norm(params["final_norm"], x)
+    final = params["final_norm"] if part is None \
+        else part.leaf("final_norm", params["final_norm"])
+    x = apply_norm(final, x)
     new_cache = None
     if cache is not None:
         new_cache = {"layers": new_layers, "pos": cache_pos + s}
     return x, new_cache, aux_total
 
 
-def head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
+def head_matrix(params: Params, cfg: ModelConfig, part=None
+                ) -> torch.Tensor:
+    """(d, V); with `part`, this rank's (d, V / model) block."""
+    if part is not None:
+        return part.leaf("embed", params["embed"]).T if cfg.tie_embeddings \
+            else part.leaf("head", params["head"])
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
@@ -335,40 +362,48 @@ def head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
-            remat: str = "full", use_kernels: bool = True) -> torch.Tensor:
+            remat: str = "full", use_kernels: bool = True,
+            part=None) -> torch.Tensor:
     """Mean next-token cross-entropy, differentiable by autograd with
     `use_kernels=False` (the plain attention, which the reference's
     training path runs).  The attention kernels have no backward: with
-    `use_kernels=True` a loss whose parameters require grad raises."""
+    `use_kernels=True` a loss whose parameters require grad raises.
+    `part`: the global mean from this rank's blocks and rows."""
     x, _, aux = forward(params, cfg, tokens=batch.get("tokens"),
                         embeds=batch.get("embeds"), remat=remat,
-                        use_kernels=use_kernels)
-    return lm_loss(head_matrix(params, cfg), x, batch["labels"]) + aux
+                        use_kernels=use_kernels, part=part)
+    return lm_loss(head_matrix(params, cfg, part), x, batch["labels"],
+                   part=part) + aux
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             max_len: int, use_kernels: bool = True,
-            cache: Optional[Params] = None) -> Tuple[torch.Tensor, Params]:
+            cache: Optional[Params] = None, part=None
+            ) -> Tuple[torch.Tensor, Params]:
     """Run the prompt, build the cache, return last-position logits.
     `cache`: a zero cache of max_len positions to fill (default: a fresh
-    `init_cache`)."""
+    `init_cache`).  `part`: this rank's rows, cache and vocab block."""
     tokens = batch.get("tokens")
     embeds = batch.get("embeds")
     src = tokens if tokens is not None else embeds
     if cache is None:
-        cache = init_cache(cfg, src.shape[0], max_len, device=src.device)
+        cache = init_cache(cfg, src.shape[0], max_len, device=src.device,
+                           part=part)
     x, new_cache, _ = forward(params, cfg, tokens=tokens, embeds=embeds,
                               cache=cache, remat="none",
-                              use_kernels=use_kernels, cache_start=0)
-    logits = x[:, -1:, :] @ head_matrix(params, cfg)
+                              use_kernels=use_kernels, cache_start=0,
+                              part=part)
+    logits = x[:, -1:, :] @ head_matrix(params, cfg, part)
     return logits, new_cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
-                tokens: torch.Tensor, use_kernels: bool = True
+                tokens: torch.Tensor, use_kernels: bool = True, part=None
                 ) -> Tuple[torch.Tensor, Params]:
-    """tokens: (B, 1) -> (logits (B,1,V), new_cache)."""
+    """tokens: (B, 1) -> (logits (B,1,V), new_cache).  `part`: this
+    rank's rows, cache and vocab block."""
     x, new_cache, _ = forward(params, cfg, tokens=tokens, cache=cache,
-                              remat="none", use_kernels=use_kernels)
-    logits = x @ head_matrix(params, cfg)
+                              remat="none", use_kernels=use_kernels,
+                              part=part)
+    logits = x @ head_matrix(params, cfg, part)
     return logits, new_cache

@@ -140,8 +140,9 @@ def adamw_init(params: Params) -> AdamWState:
 
 
 def adamw_update(cfg: OptimizerConfig, grads: Params, state: AdamWState,
-                 params: Params) -> Tuple[Params, AdamWState, dict]:
-    norm = global_norm(grads)
+                 params: Params, norm_fn=global_norm
+                 ) -> Tuple[Params, AdamWState, dict]:
+    norm = norm_fn(grads)
     scale = _clip_scale(norm, cfg.grad_clip)
     step = int(state.step) + 1
     lr = float(_lr(cfg, step))
@@ -228,9 +229,16 @@ def adafactor_update(cfg: OptimizerConfig, grads: Params,
 # Uniform facade
 # ---------------------------------------------------------------------------
 
-def make_optimizer(cfg: OptimizerConfig):
+def make_optimizer(cfg: OptimizerConfig, norm_fn=global_norm):
+    """(init, update).  `norm_fn`: the gradient tree's global norm (the
+    partitioned step's sums blocks over the mesh; AdamW only)."""
     if cfg.name == "adamw":
-        return adamw_init, lambda g, s, p: adamw_update(cfg, g, s, p)
+        return adamw_init, lambda g, s, p: adamw_update(cfg, g, s, p,
+                                                        norm_fn)
+    if norm_fn is not global_norm:
+        raise NotImplementedError(
+            f"{cfg.name} on blocks: its factored moments and update RMS "
+            "span a whole leaf (ROADMAP A11, slice 3g)")
     if cfg.name == "adafactor":
         return adafactor_init, lambda g, s, p: adafactor_update(cfg, g, s, p)
     raise ValueError(cfg.name)

@@ -16,19 +16,30 @@ splits as the reference's reshape (a, b // a, ...), float32 gradients
 summed over the microbatches and divided by a.  The optimizer updates
 the state's tensors in place, inside a profiler range named "optimizer"
 (what a `torch.profiler` trace of a step attributes to it).
+
+On a mesh of more than one rank (`make_train_step(mesh=)`, or the mesh
+of `use_mesh`) the step is the partitioned one
+(`distributed.partition`): it takes each rank's blocks of the state and
+its `dp` rows of the batch, computes the global loss and gradient norm
+on every rank and updates the blocks.  On one rank it is the step above.
+With microbatches, microbatch i is every `dp` rank's i-th slice of its
+rows.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 from torch.profiler import record_function
 
+from repro_torch.distributed.api import bind_axes, current_mesh
 from repro_torch.models.convert import (params_from_reference,
                                         params_to_reference)
 from repro_torch.models.registry import ModelAPI
 from repro_torch.optim import OptimizerConfig, make_optimizer
+from repro_torch.optim.adamw import global_norm
 from repro_torch.tree import leaves, tree_map, unflatten
 
 Params = Any
@@ -44,17 +55,22 @@ class TrainConfig:
     n_steps: int = 100
 
 
-def loss_and_grads(api: ModelAPI, remat: str = "full"
+def loss_and_grads(api: ModelAPI, remat: str = "full", part=None
                    ) -> Callable[[Params, Dict[str, torch.Tensor]],
                                  Tuple[torch.Tensor, Params]]:
     """(params, batch) -> (loss, grads): grads a tree like params, in the
-    parameters' dtypes."""
+    parameters' dtypes.  `part` (a `partition.RankLayout`): params are
+    the rank's blocks and grads their gradients, summed over the mesh;
+    the collectives act over `part.mesh`."""
     def value_and_grad(params, batch):
-        with torch.enable_grad():
+        axes = bind_axes(part.mesh) if part is not None \
+            else contextlib.nullcontext()
+        with torch.enable_grad(), axes:
             live = tree_map(lambda t: t.detach().requires_grad_(), params)
             dev = leaves(params)[0].device
+            kw = {} if part is None else {"part": part}
             loss = api.loss_fn(params_from_reference(live, api.cfg, dev),
-                               batch, remat=remat, use_kernels=False)
+                               batch, remat=remat, use_kernels=False, **kw)
             # a parameter the loss does not use (a VLM's token embedding,
             # fed embeddings) gets a zero gradient, as under jax.grad
             grads = torch.autograd.grad(loss, leaves(live),
@@ -64,13 +80,27 @@ def loss_and_grads(api: ModelAPI, remat: str = "full"
     return value_and_grad
 
 
-def make_train_step(api: ModelAPI, tc: TrainConfig
+def make_train_step(api: ModelAPI, tc: TrainConfig, mesh=None
                     ) -> Callable[[Params, Any, Dict[str, torch.Tensor]],
                                   Tuple[Params, Any, Dict[str, Any]]]:
-    _, opt_update = make_optimizer(tc.optimizer)
-    value_and_grad = loss_and_grads(api, tc.remat)
+    """The step; on a mesh of more than one rank (`mesh`, else the mesh
+    of `use_mesh`) the partitioned step on each rank's blocks."""
+    from repro_torch.distributed import partition
+
+    mesh = mesh if mesh is not None else current_mesh()
+    part = partition.RankLayout(api.cfg, mesh) \
+        if partition.is_partitioned(mesh) else None
+    _, opt_update = make_optimizer(
+        tc.optimizer, global_norm if part is None else part.global_norm)
+    value_and_grad = loss_and_grads(api, tc.remat, part)
+    axes = (lambda: bind_axes(part.mesh)) if part is not None \
+        else contextlib.nullcontext
 
     def train_step(params, opt_state, batch):
+        with axes():
+            return step(params, opt_state, batch)
+
+    def step(params, opt_state, batch):
         if tc.accum_steps <= 1:
             loss, grads = value_and_grad(params, batch)
         else:

@@ -40,18 +40,21 @@ def leaves(tree: Any) -> List[Any]:
 def unflatten(like: Any, values) -> Any:
     """A tree of `like`'s structure holding `values` in `leaves(like)`'s
     order (the inverse of `leaves`)."""
-    it = iter(values)
+    return _build(like, iter(values))
 
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if is_namedtuple(t):
-            return type(t)(*(build(v) for v in t))
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return None if t is None else next(it)
-    return build(like)
+
+def _build(t: Any, it) -> Any:
+    # a module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle, and it would hold `values` (through
+    # `it`) until the garbage collector runs
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if is_namedtuple(t):
+        return type(t)(*(_build(v, it) for v in t))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return None if t is None else next(it)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

@@ -1543,3 +1543,31 @@ def test_mesh_moe_path_on_four_ranks_of_the_card(card_moe_world, path,
     assert err <= rtol * top, (err, top)
     assert replay
     assert all(r[key] == card_moe_world[0][key] for r in card_moe_world)
+
+
+# ---------------------------------------------------------------------------
+# the partitioned train step: two ranks share the card over gloo
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_train_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: two ranks share it over gloo (the "
+                    "CPU gloo worlds are tests/test_torch_mesh_train*.py)")
+    from _mesh_train import card_train_rank
+
+    from repro_torch.launch.mesh import launch
+    return launch(card_train_rank, 2, device="cuda")
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+def test_partitioned_gradients_on_two_ranks_of_the_card(card_train_world,
+                                                        mesh):
+    """StableLM's reduced config in float32: each rank's gradients from
+    its blocks and rows within 1e-4 of each leaf's max of the one-rank
+    gradients on the card, the loss within rel 1e-5 and the same bits on
+    both ranks."""
+    loss, loss1, err = card_train_world[0][mesh]
+    assert err <= 1e-4, err
+    assert abs(loss / loss1 - 1) <= 1e-5, (loss, loss1)
+    assert card_train_world[1][mesh][0] == loss

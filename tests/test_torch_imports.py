@@ -131,6 +131,12 @@ SLICE_MODULES = {
     "repro_torch.distributed.collectives": (
         "ring_allgather_matmul", "lse_merge_attention",
         "reduce_scatter_grads", "crosspod_allreduce_compressed"),
+    # the partitioned step: differentiable collectives, the rank layout
+    "repro_torch.distributed.autograd": ("all_gather", "psum", "enter",
+                                         "pmax"),
+    "repro_torch.distributed.partition": (
+        "RankLayout", "require_partitioned", "is_partitioned", "cut",
+        "assemble", "batch_block", "cache_block", "SLICE_3G"),
     "repro_torch.distributed.pipeline": ("PipelineConfig", "pipeline_apply",
                                          "make_pipelined_mlp",
                                          "reference_apply"),

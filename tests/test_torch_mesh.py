@@ -208,7 +208,7 @@ def test_collectives_outside_a_body_are_unbound():
 def test_shard_map_refuses_inputs_that_require_grad():
     mesh = {"data": 1}
     x = torch.ones(2, requires_grad=True)
-    with pytest.raises(RuntimeError, match="slice 3f"):
+    with pytest.raises(RuntimeError, match="slice 3g"):
         api.shard_map(lambda v: v, mesh, (P(),), P())(x)
 
 

@@ -330,6 +330,33 @@ def test_metrics_contract():
     assert all(np.isfinite(float(v)) for v in metrics.values())
 
 
+def test_a_step_frees_what_its_caller_drops():
+    """Dropping a step's state and outputs frees every tensor the step
+    made at once, without waiting for the garbage collector: no
+    reference cycle holds its parameters, moments or gradients (one,
+    through `tree.unflatten`, held a step's gradients until a
+    collection)."""
+    import gc
+
+    def tensors():
+        return {id(o): o.numel() for o in gc.get_objects()
+                if isinstance(o, torch.Tensor)}
+
+    cfg, api, tc, params, opt = _setup()
+    batch = random_train_batch(cfg, 2, 16, device="cpu")
+    step = make_train_step(api, tc)
+    gc.collect()
+    gc.disable()
+    try:
+        before = tensors()
+        out = step(params, opt, batch)
+        del params, opt, out
+        left = {k: n for k, n in tensors().items() if k not in before}
+    finally:
+        gc.enable()
+    assert sum(left.values()) == 0, f"{len(left)} tensors outlive the step"
+
+
 def test_params_round_trip_between_layouts():
     """params_to_reference restacks the port's layers (head row-major)
     and params_from_reference gives views of the stacks back."""

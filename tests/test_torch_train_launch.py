@@ -155,10 +155,63 @@ def test_launcher_checkpoints_cross_the_packages(capsys):
     assert all(np.isfinite(v) for _, v in losses)
 
 
+def _mesh_args(ckpt, steps, fail_at=-1):
+    return ["--arch", "stablelm-1.6b", "--reduced", "--steps", str(steps),
+            "--batch", "8", "--seq", "16", "--ckpt-dir", ckpt,
+            "--ckpt-every", "2", "--log-every", "100", "--fail-at-step",
+            str(fail_at), "--device", "cpu"]
+
+
+def test_launcher_trains_on_a_mesh_and_resumes(capsys):
+    """`--model-parallel 2` on an 8-rank CPU world (data 4, model 2):
+    a run killed at step 3 resumes from its step-2 checkpoint and ends as
+    an uninterrupted run does (the same losses on every rank, the same
+    final checkpoint bytes); the mesh's checkpoint, global arrays
+    assembled from the blocks, resumes on one rank as on the mesh: the
+    same losses to `tests/test_torch_train.py`'s bfloat16 bar (rel 1e-3;
+    the reduced config trains in bfloat16, its products summed in
+    another order on each mesh)."""
+    from _mesh_train import launcher_rank
+    from repro_torch.launch.mesh import World
+
+    mp = ["--model-parallel", "2"]
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        with World(8, "cpu") as world:
+            clean = world.run(launcher_rank, (_mesh_args(d1, 6) + mp,))
+            crashed = world.run(launcher_rank,
+                                (_mesh_args(d2, 6, fail_at=3) + mp,))
+            on_mesh = world.run(launcher_rank, (_mesh_args(d1, 8) + mp,))
+        finals = []
+        for d in (d1, d2):
+            with open(os.path.join(d, "step_000000005",
+                                   "shard_00000.bin.zlib"), "rb") as f:
+                finals.append(f.read())
+        capsys.readouterr()
+        one_rank = tlaunch.main(_mesh_args(d2, 8))
+        assert "restored step 5" in capsys.readouterr().out
+    assert all(r == clean[0] for r in clean + crashed)
+    assert [s for s, _ in clean[0]] == list(range(6))
+    assert finals[0] == finals[1]
+    assert [s for s, _ in on_mesh[0]] == [s for s, _ in one_rank] == [6, 7]
+    for (_, a), (_, b) in zip(on_mesh[0], one_rank):
+        assert a == pytest.approx(b, rel=1e-3)
+
+
 def test_launcher_refuses_model_parallel():
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    """A family outside the partitioned step's refuses a model axis."""
+    with pytest.raises(NotImplementedError, match="slice 3g"):
+        tlaunch.main(["--arch", "jamba-v0.1-52b", "--reduced",
+                      "--model-parallel", "2", "--device", "cpu"])
+
+
+def test_launcher_model_axis_must_divide_the_world():
+    """Outside a world the launcher's world is one rank: a model axis of
+    2 raises, and the one-rank group it started is gone."""
+    with pytest.raises(ValueError, match="does not divide this world of 1"):
         tlaunch.main(["--reduced", "--model-parallel", "2", "--device",
                       "cpu"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_a_background_save_error_is_raised_by_wait():
